@@ -1,0 +1,95 @@
+"""Query planner: normalize a raw query into a shape-keyed QueryPlan.
+
+A query arrives as a bag of terms.  Planning does, in order:
+
+  1. **Normalize** — drop duplicate terms (``[t, t]`` is ``[t]``), resolve
+     terms against the index, and sort the survivors by ``(t, n, term)`` so
+     prefix alignment (ascending t) and the base-set choice (smallest set
+     first) are deterministic.
+  2. **Algorithm selection** — the paper's §3.4 online policy: two sets with
+     an extreme size ratio go to HashBin on the host; everything else runs
+     RanGroupScan on the device.
+  3. **Shape signature** — device-bound plans are keyed by
+     ``ShapeSig(k, ts, gmaxes, capacity_tier)``.  Two queries with the same
+     signature stack into the same ``(B, …)`` pass.
+
+The planner reads only per-set metadata (``t``, ``gmax``, ``n``), so it works
+the same over host ``PrefixIndex`` objects and device ``DeviceSet`` mirrors,
+and it equals the JAX package's planner on flat conjunctions.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Sequence, Tuple
+
+from ..core.engine import default_capacity, gmax_tier, set_sort_key
+
+__all__ = ["ShapeSig", "QueryPlan", "plan_query"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSig:
+    """Static shape signature of a device pass — the bucketing key."""
+
+    k: int
+    ts: Tuple[int, ...]
+    gmaxes: Tuple[int, ...]
+    capacity_tier: int
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """A normalized, routed query.
+
+    ``terms`` are deduped and (t, n, term)-sorted; ``algorithm`` is one of
+    ``"device"`` (bucketed batch path), ``"hashbin"`` (host execution), or
+    ``"empty"`` (a term has no postings).  ``sig`` is set iff
+    ``algorithm == "device"``.
+    """
+
+    terms: Tuple
+    algorithm: str
+    sig: Optional[ShapeSig] = None
+
+    def cache_key(self) -> Tuple[str, Tuple]:
+        """Result-cache key: every surface form of one conjunction (``[a,
+        b]``, ``[b, a]``, ``[a, a, b]``) normalizes to the same ``terms``.
+        The routing algorithm is part of the key so an entry never outlives
+        a routing change."""
+        return (self.algorithm, self.terms)
+
+
+def plan_query(
+    index: Mapping,
+    terms: Sequence,
+    hashbin_ratio: float = 100.0,
+) -> QueryPlan:
+    """Plan one query against ``index`` (term -> set with .t/.gmax/.n).
+
+    Pure metadata work: touches no arrays and runs no device code.  For
+    device-routed plans ``sig.gmaxes`` are power-of-two tiers and
+    ``sig.capacity_tier`` is ``default_capacity(ts)``, the static shapes
+    the executor will stack.
+    """
+    uniq = []
+    seen = set()
+    for term in terms:
+        if term in seen:
+            continue
+        seen.add(term)
+        uniq.append(term)
+    if not uniq or any(t not in index for t in uniq):
+        return QueryPlan(terms=tuple(uniq), algorithm="empty")
+    # the shared (t, n) set ordering, with the term itself as a final
+    # tie-break so equal-(t, n) sets still order deterministically
+    uniq.sort(key=lambda t: (*set_sort_key(index[t]), t))
+    ns = [index[t].n for t in uniq]
+    if len(uniq) == 2 and max(ns) / max(1, min(ns)) > hashbin_ratio:
+        return QueryPlan(terms=tuple(uniq), algorithm="hashbin")
+    ts = tuple(index[t].t for t in uniq)
+    sig = ShapeSig(
+        k=len(uniq), ts=ts,
+        gmaxes=tuple(gmax_tier(index[t].gmax) for t in uniq),
+        capacity_tier=default_capacity(ts),
+    )
+    return QueryPlan(terms=tuple(uniq), algorithm="device", sig=sig)

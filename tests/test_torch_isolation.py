@@ -1,0 +1,82 @@
+"""The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package.
+
+A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
+``repro`` and ``repro.*`` (but not ``repro_torch``) and imports every
+module of the port and ``chip_smoke``; a static scan finds no such import
+in any of their sources.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BLOCKED = ("jax", "jaxlib", "repro")
+
+PROBE = r"""
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "repro")
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+try:
+    import repro.core.hashing  # noqa: F401
+except ImportError:
+    pass
+else:
+    raise SystemExit("the hook did not block the JAX package")
+import repro_torch
+names = ["repro_torch"] + [
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401  (defines main(); runs nothing on import)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("\n".join(names))
+"""
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    proc = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    imported = set(proc.stdout.split())
+    expected = {
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py"}
+    assert expected <= imported, expected - imported
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in BLOCKED]
+    assert not bad, f"{path.name} imports {bad}"
+    text = path.read_text()
+    for needle in ("import jax", "from repro.", "import repro.",
+                   "from repro import"):
+        assert needle not in text, needle

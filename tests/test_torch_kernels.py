@@ -1,0 +1,165 @@
+"""The port's kernel modules on the CPU.
+
+The plain PyTorch versions (``repro_torch.kernels.ref``) are held against
+the JAX package's jnp references and against its Pallas kernels run in
+interpret mode, on the same numpy inputs and over the grid of
+``tests/test_kernels.py``; outputs must be equal (tolerance 0).  The CUDA
+wrappers must refuse CPU tensors, and the router must send CPU tensors to
+the plain versions without touching the kernels.  The CUDA kernels
+themselves are held against the plain versions on the card by
+``chip_smoke.py``.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.bitmap_filter import bitmap_filter_pallas
+from repro.kernels.group_intersect import group_match_pallas
+
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+from repro_torch.kernels.group_intersect import group_match_cuda
+
+
+def as_torch(x: np.ndarray) -> torch.Tensor:
+    """uint32 images travel as int32 bit patterns, as on the device."""
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+def check_filter(imgs: np.ndarray, pallas: bool = True) -> np.ndarray:
+    out = ref.bitmap_filter_ref(as_torch(imgs)).numpy()
+    assert out.dtype == np.bool_
+    np.testing.assert_array_equal(out, np.asarray(
+        jref.bitmap_filter_ref(jnp.asarray(imgs))))
+    if pallas:
+        np.testing.assert_array_equal(out, np.asarray(
+            bitmap_filter_pallas(jnp.asarray(imgs), interpret=True)))
+    np.testing.assert_array_equal(out, ops.bitmap_filter(as_torch(imgs)).numpy())
+    return out
+
+
+def check_match(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    out = ref.group_match_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert out.dtype == np.bool_
+    np.testing.assert_array_equal(out, np.asarray(
+        jref.group_match_ref(jnp.asarray(a), jnp.asarray(b))))
+    np.testing.assert_array_equal(out, np.asarray(
+        group_match_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True)))
+    np.testing.assert_array_equal(
+        out, ops.group_match(torch.from_numpy(a), torch.from_numpy(b)).numpy())
+    return out
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+@pytest.mark.parametrize("G", [1, 7, 128, 1000])
+@pytest.mark.parametrize("m,W", [(1, 2), (2, 8), (3, 4), (4, 2)])
+def test_bitmap_filter_sweep(k, G, m, W):
+    rng = np.random.default_rng(k * 1000 + G + m * 10 + W)
+    imgs = rng.integers(0, 1 << 32, size=(k, G, m, W),
+                        dtype=np.uint64).astype(np.uint32)
+    imgs[rng.random((k, G, m, W)) < 0.6] = 0
+    check_filter(imgs)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32])
+def test_bitmap_filter_dtypes(dtype):
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 1 << 31, size=(2, 64, 2, 8),
+                        dtype=np.int64).astype(dtype)
+    check_filter(imgs)
+
+
+def test_bitmap_filter_all_pass_all_fail():
+    ones = np.full((3, 32, 2, 4), 0xFFFFFFFF, dtype=np.uint32)
+    assert check_filter(ones).all()
+    zeros = np.zeros((3, 32, 2, 4), dtype=np.uint32)
+    assert not check_filter(zeros).any()
+
+
+@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("G", [7, 128, 300])
+def test_bitmap_filter_batched(B, G):
+    rng = np.random.default_rng(B * 17 + G)
+    imgs = rng.integers(0, 1 << 32, size=(B, 3, G, 2, 8),
+                        dtype=np.uint64).astype(np.uint32)
+    imgs[rng.random(imgs.shape) < 0.6] = 0
+    out = check_filter(imgs)
+    assert out.shape == (B, G)
+    for b in range(B):
+        np.testing.assert_array_equal(
+            out[b], ref.bitmap_filter_ref(as_torch(imgs[b])).numpy())
+
+
+@pytest.mark.parametrize("S", [1, 8, 57, 256])
+@pytest.mark.parametrize("ga,gb", [(8, 8), (16, 32), (40, 16), (128, 128)])
+def test_group_match_sweep(S, ga, gb):
+    rng = np.random.default_rng(S * 100 + ga + gb)
+    a = rng.integers(0, 500, size=(S, ga)).astype(np.int32)
+    b = rng.integers(0, 500, size=(S, gb)).astype(np.int32)
+    a[rng.random((S, ga)) < 0.25] = -1
+    b[rng.random((S, gb)) < 0.25] = -1
+    check_match(a, b)
+
+
+@pytest.mark.parametrize("B,S", [(1, 8), (4, 13), (6, 64)])
+def test_group_match_batched(B, S):
+    rng = np.random.default_rng(B * 31 + S)
+    a = rng.integers(0, 300, size=(B, S, 16)).astype(np.int32)
+    b = rng.integers(0, 300, size=(B, S, 24)).astype(np.int32)
+    a[rng.random(a.shape) < 0.25] = -1
+    b[rng.random(b.shape) < 0.25] = -1
+    out = check_match(a, b)
+    assert out.shape == (B, S, 16)
+    for i in range(B):
+        np.testing.assert_array_equal(out[i], check_match(a[i], b[i]))
+
+
+def test_group_match_sentinel_never_matches():
+    a = np.full((4, 8), -1, dtype=np.int32)
+    b = np.full((4, 8), -1, dtype=np.int32)
+    assert not check_match(a, b).any()
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    imgs = torch.zeros((2, 16, 2, 8), dtype=torch.int32)
+    rows = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        bitmap_filter_cuda(imgs)
+    with pytest.raises(ValueError):
+        group_match_cuda(rows, rows)
+
+
+def test_router_sends_cpu_tensors_to_plain_versions():
+    before = (bitmap_filter_cuda.launches, group_match_cuda.launches)
+    rng = np.random.default_rng(7)
+    imgs = rng.integers(0, 1 << 32, size=(2, 200, 2, 8),
+                        dtype=np.uint64).astype(np.uint32)
+    np.testing.assert_array_equal(ops.bitmap_filter(as_torch(imgs)).numpy(),
+                                  ref.bitmap_filter_ref(as_torch(imgs)).numpy())
+    a = torch.from_numpy(rng.integers(0, 99, size=(16, 16)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 99, size=(16, 24)).astype(np.int32))
+    np.testing.assert_array_equal(ops.group_match(a, b).numpy(),
+                                  ref.group_match_ref(a, b).numpy())
+    assert (bitmap_filter_cuda.launches, group_match_cuda.launches) == before
+    with pytest.raises(ValueError):
+        ops.bitmap_filter(as_torch(imgs).to("meta"))
+
+
+def test_build_sources_and_digest(tmp_path, monkeypatch):
+    """The library is keyed by a hash of its sources and flags: a changed
+    source gets a new library name, an unchanged one the same."""
+    names = [p.name for p in _build.sources()]
+    assert {"bitmap_filter.cu", "group_match.cu"} <= set(names)
+    for src in _build.sources():
+        text = src.read_text()
+        assert 'extern "C"' in text
+    before = _build._digest()
+    assert before == _build._digest()
+    for src in _build.sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._digest() == before
+    (tmp_path / "group_match.cu").write_text("// changed\n")
+    assert _build._digest() != before
