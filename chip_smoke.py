@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA GPU and the
 CUDA toolkit; it builds the kernels itself (``nvcc``, into ``build/``).  It
 imports nothing of JAX or of the JAX package.  Phases, in order:
 
-  1. build   — print the card and its power limit; build both CUDA kernels
+  1. build   — print the card and its power limit; build the CUDA kernels
                from ``src/repro_torch/csrc`` and print the build time and
                what ``ptxas`` reports (registers, spills, shared memory).
   2. bitmap_filter — the phase-1 kernel against its plain PyTorch version on
@@ -26,9 +26,32 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                each kernel and its plain version timed with CUDA events on
                that first pass's inputs, beside the least time the card
                could take (``bound_ms``).
+  6. pair_count — the suggest path's count kernel against its plain version
+               on the card, bit for bit: both alignment directions and equal
+               depths, g tiers 8-128, (B, C) up to (16, 1024), all-sentinel
+               probes, disjoint and identical sets.
+  7. suggest — a corpus of 1024 sets (sizes log-uniform in [2^12, 2^16],
+               ids uniform in [0, 2^24)) plus two copies of set 0, written
+               as RSI1 records and ingested into ``SuggestEngine(...,
+               device="cuda")``; 256 Zipf probes at k 8 in micro-batches of
+               16, once with the result cache and once with it cleared per
+               micro-batch, then one batch at k 1, 20 and 100.  Every answer
+               must equal a scipy.sparse incidence-product oracle, probing
+               the second copy must rank set 0 before the first copy, and
+               buckets of both alignment directions must run.  A profiled
+               pass gives the device-time breakdown; ``pair_count`` is then
+               checked on the heaviest count bucket of each alignment
+               direction (its own table) and timed on the heaviest of all,
+               beside the compares of real elements it needs
+               (``bound_ms``).
+  8. small sets — 4096 sets of 4-16 elements from a shared pool, where the
+               hash-bin pre-filter drops most candidates: 64 Zipf probes,
+               cache cleared per micro-batch, every answer against the
+               oracle.
 
-It fails (non-zero exit, no final line) if there is no GPU, a kernel does
-not build, launch or agree, or any answer is wrong.  The last lines are the
+Each phase prints its seconds.  It fails (non-zero exit, no final line) if
+there is no GPU, a kernel does not build, launch or agree, or any answer is
+wrong.  The last lines are the
 kernel table as JSON and ``{"ok": true, "device": {...}}``.  ``--report``
 writes a fuller JSON report (every count, time and profile row) to PATH.
 """
@@ -58,11 +81,29 @@ W_BITS, M_IMAGES = 256, 2    # the repo's serving defaults
 N_QUERIES = 256              # zipf_query_log: 68/23/9% 2-, 3-, 4-keyword
 SEED = 0
 
+# -- the suggest slice: a corpus of sets its users would call real ----------
+SUGGEST_SETS = 1024          # log-uniform sizes in [SUGGEST_MIN_LEN, MAX_LEN]
+SUGGEST_MIN_LEN = 1 << 12
+SUGGEST_MAX_LEN = 1 << 16
+SUGGEST_UNIVERSE = 1 << 24   # element ids (benchmarks/fig_suggest_qps.py)
+SUGGEST_PROBES = 256         # Zipf(ZIPF_A) probe ids over the corpus
+ZIPF_A = 1.3
+SUGGEST_K = 8
+SUGGEST_BATCH = 16           # requests per suggest_batch call
+SUGGEST_MIXED_K = (1, 20, 100)
+
+# -- a mix of small sets, where the hash-bin pre-filter drops candidates ------
+SMALL_SETS = 4096            # sizes uniform in [SMALL_MIN_LEN, SMALL_MAX_LEN]
+SMALL_MIN_LEN, SMALL_MAX_LEN = 4, 16
+SMALL_POOL = 4096            # shared element pool (fig_suggest_qps.py's default)
+SMALL_PROBES = 64
+
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
 # int32 compares: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 TIME_ITERS = 20
+PLAIN_COUNT_ITERS = 3        # count_block_ref takes ~a second at its heaviest
 
 
 def require(cond: bool, msg: str) -> None:
@@ -211,6 +252,77 @@ def check_group_match(torch, gen, ops, ref, group_match_cuda):
     print(f"phase 3 group_match: {len(cases) + 2} shapes bit-identical to "
           f"the plain version")
     return worst, len(cases) + 2
+
+
+# -- phase 6: pair_count against its plain version --------------------------
+
+def count_mirror(torch, gen, t, g, lo=0, hi=400):
+    """A (2^t, g) int32 mirror: small values (many hits) and -1 padding."""
+    x = torch.randint(lo, hi, (1 << t, g), dtype=torch.int32, generator=gen,
+                      device="cuda")
+    x[torch.rand((1 << t, g), generator=gen, device="cuda") < 0.3] = -1
+    return x
+
+
+def check_count_table(torch, ref, count_block_cuda, table) -> int:
+    """The kernel's (B, c_tier) counts against the plain version's."""
+    out = count_block_cuda(table)
+    want = ref.count_block_ref(table.probes, table.cands, table.ts,
+                               c_tier=table.c_tier)
+    torch.cuda.synchronize()
+    return max_abs_err(torch, out, want)
+
+
+def check_pair_count(torch, gen, ref, count_block_cuda, make_count_table):
+    """``pair_count`` bit for bit against ``count_block_ref`` over both
+    alignment directions and equal depths, g tiers 8-128, (B, C) of (1, 1),
+    (1, 3) and (16, 3) (c_tier 4, rows of 1-3 candidates) and (16, 1024),
+    plus all-sentinel probes, disjoint sets and identical sets."""
+    worst, n = 0, 0
+    for tp, tc in ((7, 4), (5, 5), (3, 6)):
+        for gp, gc in ((8, 8), (16, 128), (128, 32), (64, 64), (128, 128)):
+            pool = [count_mirror(torch, gen, tc, gc) for _ in range(48)]
+            for B, C in ((1, 1), (1, 3), (16, 3), (16, 1024)):
+                probes = [count_mirror(torch, gen, tp, gp) for _ in range(B)]
+                pick = torch.randint(0, len(pool), (B, C), generator=gen,
+                                     device="cuda").tolist()
+                lens = [C] + [1 + (b * 7) % C for b in range(1, B)]
+                cands = [[pool[i] for i in row[:ln]]
+                         for row, ln in zip(pick, lens)]
+                table = make_count_table(probes, cands, (tp, tc),
+                                         c_tier=1 << (C - 1).bit_length())
+                err = check_count_table(torch, ref, count_block_cuda, table)
+                require(err == 0, f"pair_count ts {(tp, tc)} g {(gp, gc)} "
+                                  f"B {B} C {C}: max_abs_err {err}")
+                worst, n = max(worst, err), n + 1
+    # all-sentinel probe rows and disjoint sets count 0; a set against
+    # itself or its copy counts every element once
+    for tp, tc in ((6, 4), (5, 5), (4, 6)):
+        pad = torch.full((1 << tp, 32), -1, dtype=torch.int32, device="cuda")
+        low = count_mirror(torch, gen, tp, 32, 0, 1000)
+        high = count_mirror(torch, gen, tc, 64, 5000, 9000)
+        table = make_count_table([pad, low], [[high], [high]], (tp, tc))
+        out = count_block_cuda(table)
+        require(not bool(out.any()), f"sentinel/disjoint counted {out}")
+        worst = max(worst, check_count_table(torch, ref, count_block_cuda,
+                                             table))
+        n += 1
+    for t, g in ((5, 8), (8, 64), (10, 128)):
+        perm = torch.randperm(1 << (t + 7), generator=gen, device="cuda")
+        s = perm[:(1 << t) * g].to(torch.int32).view(1 << t, g)
+        s[torch.rand(s.shape, generator=gen, device="cuda") < 0.4] = -1
+        real = int((s != -1).sum())
+        table = make_count_table([s], [[s, s.clone(), s.flip(0).contiguous()]],
+                                 (t, t))
+        out = count_block_cuda(table)
+        torch.cuda.synchronize()
+        require(out[0, :2].tolist() == [real, real],
+                f"identical sets counted {out[0].tolist()}, want {real}")
+        worst = max(worst, check_count_table(torch, ref, count_block_cuda,
+                                             table))
+        n += 1
+    print(f"phase 6 pair_count: {n} tables bit-identical to the plain version")
+    return worst, n
 
 
 # -- phase 5: times ---------------------------------------------------------
@@ -390,16 +502,17 @@ def serve_slice(engine, log, postings, sync=lambda: None):
     return results, wall
 
 
-def profile_breakdown(torch, engine, log):
-    """Device time by kernel name over one more pass, and the device's busy
-    share of that pass's wall time (None where the profiler saw nothing)."""
+def profile_breakdown(torch, run):
+    """Device time by kernel name over one more pass (``run()``), and the
+    device's busy share of that pass's wall time (None where the profiler
+    saw nothing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.query_batch(log)
+        run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = []
@@ -422,6 +535,394 @@ def profile_breakdown(torch, engine, log):
     }
 
 
+# -- phase 7: the suggest slice ----------------------------------------------
+
+def make_suggest_corpus(seed: int = SEED, n_sets: int = SUGGEST_SETS,
+                        min_len: int = SUGGEST_MIN_LEN,
+                        max_len: int = SUGGEST_MAX_LEN,
+                        universe: int = SUGGEST_UNIVERSE):
+    """Sets 0..n_sets-1 with log-uniform sizes and uniform element ids, plus
+    two exact copies of set 0 as ids n_sets and n_sets+1, which force
+    count ties (as ``benchmarks/fig_suggest_qps.py`` does)."""
+    rng = np.random.default_rng(seed + 2)
+    lens = np.exp(rng.uniform(math.log(min_len), math.log(max_len), n_sets))
+    corpus = {sid: sample_ids(rng, int(n), universe)
+              for sid, n in enumerate(lens.astype(np.int64))}
+    corpus[n_sets] = corpus[0].copy()
+    corpus[n_sets + 1] = corpus[0].copy()
+    return corpus
+
+
+def zipf_probe_log(set_ids, n_queries: int, seed: int, a: float = ZIPF_A):
+    """Zipf-skewed probe ids, as ``benchmarks/fig_suggest_qps.py`` draws
+    them: head probes repeat, which is the result cache's traffic."""
+    rng = np.random.default_rng(seed)
+    ids = sorted(set_ids)
+    ranks = np.minimum(rng.zipf(a, size=n_queries) - 1, len(ids) - 1)
+    return [ids[r] for r in ranks]
+
+
+class SuggestOracle:
+    """Exact top-K from a set x element incidence matrix (scipy.sparse):
+    one sparse product gives every probe's count against every set; pairs
+    sort by (-count, id).  Independent of the port."""
+
+    def __init__(self, corpus):
+        import scipy.sparse as sp
+
+        self.ids = sorted(corpus)
+        lens = [len(corpus[i]) for i in self.ids]
+        indptr = np.concatenate([[0], np.cumsum(lens)])
+        indices = np.concatenate([corpus[i] for i in self.ids]).astype(np.int64)
+        self.matrix = sp.csr_matrix(
+            (np.ones(len(indices), np.int32), indices, indptr),
+            shape=(len(self.ids), int(indices.max()) + 1))
+        self.row = {sid: r for r, sid in enumerate(self.ids)}
+        self.counts = {}
+
+    def prepare(self, probes):
+        todo = sorted(set(probes) - set(self.counts))
+        if todo:
+            prod = (self.matrix[[self.row[p] for p in todo]]
+                    @ self.matrix.T).toarray()
+            for p, counts in zip(todo, prod):
+                self.counts[p] = counts
+
+    def topk(self, sid, k):
+        counts = self.counts[sid]
+        order = sorted((-int(n), c) for c, n in zip(self.ids, counts)
+                       if c != sid and n >= 1)
+        return [(c, -n) for n, c in order[:k]]
+
+
+def serve_suggest(engine, log, k, batch, oracle, clear_cache=False,
+                  sync=lambda: None):
+    """The probe log in micro-batches of ``batch`` through
+    ``suggest_batch``; returns (results, wall s) after checking every answer
+    against the oracle.  ``clear_cache`` empties the result cache before
+    each micro-batch, so every request runs its device passes."""
+    sync()
+    t0 = time.perf_counter()
+    results = []
+    for i in range(0, len(log), batch):
+        if clear_cache:
+            engine.cache.invalidate()
+        results.extend(engine.suggest_batch([(s, k) for s in log[i:i + batch]]))
+    sync()
+    wall = time.perf_counter() - t0
+    for sid, res in zip(log, results):
+        want = oracle.topk(sid, k)
+        require(res.suggestions == want,
+                f"suggest({sid}, {k}): {res.suggestions[:4]}..., oracle "
+                f"{want[:4]}...")
+    return results, wall
+
+
+def suggest_buckets(engine, log, k, batch):
+    """The count buckets an uncached pass of the log runs: [(sig, rows)]
+    per micro-batch, rows as ``dispatch_count_batch`` takes them."""
+    from repro_torch.exec.batch import bucket_plans
+
+    out = []
+    for i in range(0, len(log), batch):
+        plans = [p for sid in log[i:i + batch]
+                 for p in engine._plans_for(sid, k) if p.algorithm == "device"]
+        for sig, items in bucket_plans(enumerate(plans)).items():
+            sets = engine.device.sets
+            out.append((sig, [(sets[p.terms[0]], [sets[t] for t in p.terms[1:]])
+                              for _, p in items]))
+    return out
+
+
+class PairWork:
+    """The int32 compares the count function needs for one (probe,
+    candidate) pair: each real element (not -1) of the deeper set's row z
+    against each real element of the shallower set's row z >> d.  Rows'
+    real-element counts are read once per mirror from the card; pairs are
+    cached, since a Zipf log repeats them."""
+
+    def __init__(self):
+        self._rows, self._pairs = {}, {}
+
+    def rows(self, s) -> np.ndarray:
+        if id(s) not in self._rows:  # the mirror is held, so ids stay unique
+            self._rows[id(s)] = (s, (s.vals != -1).sum(-1).cpu().numpy())
+        return self._rows[id(s)][1]
+
+    def __call__(self, probe, cand) -> int:
+        key = (id(probe), id(cand))
+        if key not in self._pairs:
+            deep, shallow = (probe, cand) if probe.t >= cand.t else (cand, probe)
+            nb = self.rows(shallow)
+            na = self.rows(deep).reshape(len(nb), -1).sum(1)
+            self._pairs[key] = int(na @ nb)
+        return self._pairs[key]
+
+
+def bucket_work(sig, rows, pair_work) -> dict:
+    """What one count bucket needs at least: ``compares``, each real element
+    of the iterated side against each real element of its aligned row
+    (``PairWork``), and ``bytes``, each distinct mirror read once, the
+    pointer table read and the counts written.  ``tile_compares`` is the
+    work of the TPU kernel's padded tiles, G·gp·gc per pair (every -1 slot
+    compared), which ``pair_count`` also scans; it is kept beside, not used
+    for the bound."""
+    G = 1 << max(sig.ts)
+    pairs = sum(len(cands) for _, cands in rows)
+    mirrors = {id(s): s for p, cands in rows for s in [p, *cands]}
+    bytes_ = sum(s.vals.numel() * 4 for s in mirrors.values())
+    bytes_ += len(rows) * (1 + sig.cands) * 8 + len(rows) * sig.cands * 4
+    compares = sum(pair_work(p, c) for p, cands in rows for c in cands)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = compares / INT32_OPS_PER_S * 1e3
+    return {"compares": compares, "bytes": bytes_,
+            "tile_compares": pairs * G * sig.gmaxes[0] * sig.gmaxes[1],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def direction(sig) -> int:
+    """1 when the probe iterates (tp > tc), -1 when the candidate does, 0
+    for equal depths."""
+    return (sig.ts[0] > sig.ts[1]) - (sig.ts[0] < sig.ts[1])
+
+
+def time_pair_count(torch, ref, count_block_cuda, buckets, works):
+    """Check ``pair_count`` against its plain version on the heaviest count
+    bucket of each alignment direction the path ran (its own pointer
+    table), then time both on the heaviest bucket of all."""
+    from repro_torch.core.engine import _count_signature, _pack_count_rows
+
+    heaviest = {}
+    for i, ((sig, _), work) in enumerate(zip(buckets, works)):
+        d = direction(sig)
+        if d not in heaviest or work["compares"] > works[heaviest[d]]["compares"]:
+            heaviest[d] = i
+    def table_of(i):
+        rows = buckets[i][1]
+        return _pack_count_rows(rows, _count_signature(rows)[1])
+
+    for d, i in sorted(heaviest.items()):
+        sig, rows = buckets[i]
+        table = table_of(i)
+        err = check_count_table(torch, ref, count_block_cuda, table)
+        require(err == 0, f"pair_count on the path {sig}: max_abs_err {err}")
+        print(f"phase 7 pair_count on the heaviest bucket of direction {d} "
+              f"(ts {sig.ts}, gmaxes {sig.gmaxes}, B {len(rows)}, c_tier "
+              f"{table.c_tier}) bit-identical to the plain version")
+    timed = max(heaviest.values(), key=lambda i: works[i]["compares"])
+    sig, rows = buckets[timed]
+    table = table_of(timed)
+    work = works[timed]
+    out = {
+        "sig": {"ts": list(sig.ts), "gmaxes": list(sig.gmaxes),
+                "c_tier": table.c_tier, "B": len(rows)},
+        "checked_directions": sorted(heaviest),
+        "ms": cuda_ms(torch, lambda: count_block_cuda(table)),
+        "plain_ms": cuda_ms(torch, lambda: ref.count_block_ref(
+            table.probes, table.cands, table.ts, c_tier=table.c_tier),
+            iters=PLAIN_COUNT_ITERS),
+        **work, "max_abs_err": 0,
+    }
+    print(f"phase 7 pair_count timed on ts {sig.ts}: {out['ms']:.4f} ms "
+          f"(plain {out['plain_ms']:.4f} ms); {work['compares']} compares of "
+          f"real elements ({work['tile_compares']} at the TPU's padded "
+          f"tiles), {work['bytes']} bytes, bound {work['bound_ms']:.4f} ms "
+          f"({work['bound_by']})")
+    return out
+
+
+def run_suggest_slice(torch, ref, count_block_cuda, report):
+    """Phase 7: build the corpus, ingest it through the port's RSI1 reader,
+    serve the Zipf probe log cached and uncached and a mixed-k batch, all
+    against the oracle; profile a pass; check and time ``pair_count`` on
+    the heaviest bucket.  Returns (pair_count launches on the path, kernel
+    times)."""
+    from repro_torch.core.engine import EXEC_COUNTERS
+    from repro_torch.data.ingest import ingest_file, write_records
+    from repro_torch.serve.search import SuggestEngine
+
+    t0 = time.perf_counter()
+    corpus = make_suggest_corpus()
+    n_elems = sum(len(v) for v in corpus.values())
+    path = ROOT / "build" / "suggest_corpus.rsi"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_records(path, sorted(corpus.items()))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = SuggestEngine({}, w=W_BITS, m=M_IMAGES, seed=SEED, device="cuda")
+    n_ingested = ingest_file(path, engine)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    path.unlink()
+    require(n_ingested == len(corpus), f"ingested {n_ingested} of {len(corpus)}")
+    index_bytes = sum(s.vals.numel() * 4 + s.images.numel() * 4
+                      for s in engine.device.sets.values())
+    classes = {}
+    for s in engine.device.sets.values():
+        classes[(s.t, s.gmax)] = classes.get((s.t, s.gmax), 0) + 1
+    print(f"phase 7 corpus: {len(corpus)} sets, {n_elems} elements, sizes "
+          f"{min(map(len, corpus.values()))}..{max(map(len, corpus.values()))};"
+          f" (t, gmax tier) classes {dict(sorted(classes.items()))}; data "
+          f"{gen_s:.1f} s, ingest and preprocessing {ingest_s:.1f} s, device "
+          f"bytes {index_bytes}")
+
+    log = zipf_probe_log(range(SUGGEST_SETS + 2), SUGGEST_PROBES, SEED + 3)
+    dup_a, dup_b = SUGGEST_SETS, SUGGEST_SETS + 1
+    mixed = [(sid, k) for k in SUGGEST_MIXED_K
+             for sid in sorted(set(log))[:SUGGEST_BATCH // 2] + [dup_b]]
+    t0 = time.perf_counter()
+    oracle = SuggestOracle(corpus)
+    oracle.prepare(log + [sid for sid, _ in mixed])
+    oracle_s = time.perf_counter() - t0
+
+    sync = torch.cuda.synchronize
+    count_block_cuda.launches = 0
+    EXEC_COUNTERS.reset()
+    cached, cached_wall = serve_suggest(engine, log, SUGGEST_K, SUGGEST_BATCH,
+                                        oracle, sync=sync)
+    cached_counters = EXEC_COUNTERS.snapshot()
+    cached_launches = count_block_cuda.launches
+    EXEC_COUNTERS.reset()
+    _, wall = serve_suggest(engine, log, SUGGEST_K, SUGGEST_BATCH, oracle,
+                            clear_cache=True, sync=sync)
+    counters = EXEC_COUNTERS.snapshot()
+    uncached_launches = count_block_cuda.launches - cached_launches
+    engine.cache.invalidate()
+    sync()
+    t0 = time.perf_counter()
+    got = engine.suggest_batch(mixed)
+    sync()
+    mixed_wall = time.perf_counter() - t0
+    launches = count_block_cuda.launches
+    for (sid, k), res in zip(mixed, got):
+        require(res.suggestions == oracle.topk(sid, k),
+                f"suggest({sid}, {k}) disagrees with the oracle")
+        require(res.algorithm == "suggest/device", res.algorithm)
+    require(launches > 0, "pair_count never launched")
+    top = engine.suggest(dup_b, SUGGEST_K).suggestions
+    require([c for c, _ in top[:2]] == [0, dup_a],
+            f"probing {dup_b} ranks {top[:2]}, want 0 then {dup_a}")
+    buckets = suggest_buckets(engine, log, SUGGEST_K, SUGGEST_BATCH)
+    directions = {direction(s) for s, _ in buckets}
+    require({1, -1} <= directions,
+            f"alignment directions served: {sorted(directions)}")
+    pairs = sum(len(c) for _, rows in buckets for _, c in rows)
+    pair_work = PairWork()
+    works = [bucket_work(sig, rows, pair_work) for sig, rows in buckets]
+    compares = sum(w["compares"] for w in works)
+    tile_compares = sum(w["tile_compares"] for w in works)
+    pass_bound_ms = sum(w["bound_ms"] for w in works)
+    hits = sum(bool(r.stats.get("cached")) for r in cached)
+    selectivity = counters["suggest_prefilter_kept"] / max(
+        1, counters["suggest_prefilter_in"])
+    print(f"phase 7 suggest, cached: {len(log)} probes ({len(set(log))} "
+          f"distinct) at k {SUGGEST_K} in micro-batches of {SUGGEST_BATCH}: "
+          f"wall {cached_wall:.3f} s, "
+          f"{len(log) / cached_wall:.1f} QPS, {hits} cache hits, "
+          f"{cached_counters['count_calls']} count passes, {cached_launches} "
+          f"pair_count launches")
+    print(f"phase 7 suggest, cache cleared per micro-batch: wall {wall:.3f} s, "
+          f"{len(log) / wall:.1f} QPS, {counters['count_calls']} count passes, "
+          f"{uncached_launches} pair_count launches, {len(buckets)} buckets "
+          f"(directions {sorted(directions)}), {pairs} pairs, {compares} "
+          f"compares of real elements ({tile_compares} at the TPU's padded "
+          f"tiles; bound {pass_bound_ms:.4f} ms), prefilter kept "
+          f"{counters['suggest_prefilter_kept']} of "
+          f"{counters['suggest_prefilter_in']} ({selectivity:.4f}), "
+          f"{counters['collect_us']} us in collect")
+    print(f"phase 7 mixed k {SUGGEST_MIXED_K}: {len(mixed)} requests in "
+          f"{mixed_wall:.3f} s; probing {dup_b} ranks 0 before {dup_a}; every "
+          f"answer equals the oracle ({oracle_s:.1f} s to build it)")
+
+    def uncached_pass():
+        for i in range(0, len(log), SUGGEST_BATCH):
+            engine.cache.invalidate()
+            engine.suggest_batch([(s, SUGGEST_K) for s in log[i:i + SUGGEST_BATCH]])
+
+    prof = profile_breakdown(torch, uncached_pass)
+    kernel_ms = sum(r["ms"] for r in prof["top"] if "pair_count" in r["name"])
+    print(f"phase 7 profiled uncached pass: wall {prof['wall_s']:.3f} s, "
+          f"device busy {prof['device_busy_ms']} ms, share "
+          f"{prof['device_busy_share']}; pair_count {kernel_ms:.3f} ms against "
+          f"the pass's bound of {pass_bound_ms:.4f} ms")
+    for row in prof["top"][:8]:
+        print(f"  {row['ms']:10.3f} ms  {row['calls']:6d}x  {row['name'][:90]}")
+    timed = time_pair_count(torch, ref, count_block_cuda, buckets, works)
+    report["suggest"] = {
+        "sets": len(corpus), "elements": n_elems, "probes": len(log),
+        "k": SUGGEST_K, "batch": SUGGEST_BATCH, "data_s": gen_s,
+        "ingest_s": ingest_s, "oracle_s": oracle_s,
+        "index_device_bytes": index_bytes,
+        "cached_wall_s": cached_wall, "cached_qps": len(log) / cached_wall,
+        "cached_counters": cached_counters, "cache_hits": hits,
+        "uncached_wall_s": wall, "uncached_qps": len(log) / wall,
+        "uncached_counters": counters, "prefilter_selectivity": selectivity,
+        "launches": {"cached": cached_launches, "uncached": uncached_launches,
+                     "total": launches},
+        "buckets": len(buckets), "pairs": pairs, "compares": compares,
+        "tile_compares": tile_compares, "pass_bound_ms": pass_bound_ms, "profiled_pair_count_ms": kernel_ms,
+        "classes": {f"{t},{g}": n for (t, g), n in sorted(classes.items())},
+        "mixed_wall_s": mixed_wall, "profile": prof, "pair_count": timed,
+    }
+    return launches, timed
+
+
+def make_small_corpus(seed: int = SEED, n_sets: int = SMALL_SETS,
+                      min_len: int = SMALL_MIN_LEN,
+                      max_len: int = SMALL_MAX_LEN, pool: int = SMALL_POOL):
+    """Sets of min_len..max_len elements drawn from one shared pool, as
+    ``benchmarks/fig_suggest_qps.py``'s ``random_corpus`` draws them."""
+    rng = np.random.default_rng(seed + 4)
+    ids = rng.choice(SUGGEST_UNIVERSE, size=pool, replace=False)
+    return {sid: np.sort(rng.choice(ids, size=int(n), replace=False))
+            .astype(np.uint32)
+            for sid, n in enumerate(rng.integers(min_len, max_len + 1, n_sets))}
+
+
+def run_small_sets(torch, count_block_cuda, report) -> None:
+    """Phase 8: small sets fill few of the 256 hash bins, so the pre-filter
+    drops most candidates; Zipf probes served with the cache cleared per
+    micro-batch must still equal the oracle."""
+    from repro_torch.core.engine import EXEC_COUNTERS
+    from repro_torch.serve.search import SuggestEngine
+
+    corpus = make_small_corpus()
+    t0 = time.perf_counter()
+    engine = SuggestEngine(corpus, w=W_BITS, m=M_IMAGES, seed=SEED,
+                           device="cuda")
+    build_s = time.perf_counter() - t0
+    log = zipf_probe_log(corpus, SMALL_PROBES, SEED + 5)
+    oracle = SuggestOracle(corpus)
+    oracle.prepare(log)
+    before = count_block_cuda.launches
+    EXEC_COUNTERS.reset()
+    results, wall = serve_suggest(engine, log, SUGGEST_K, SUGGEST_BATCH, oracle,
+                                  clear_cache=True, sync=torch.cuda.synchronize)
+    counters = EXEC_COUNTERS.snapshot()
+    launches = count_block_cuda.launches - before
+    kept, examined = (counters["suggest_prefilter_kept"],
+                      counters["suggest_prefilter_in"])
+    require(launches > 0, "pair_count never launched on the small sets")
+    require(kept < examined / 2,
+            f"the pre-filter kept {kept} of {examined} on the small sets")
+    found = sum(len(r.suggestions) for r in results)
+    print(f"phase 8 small sets: {len(corpus)} sets of {SMALL_MIN_LEN}-"
+          f"{SMALL_MAX_LEN} elements from a pool of {SMALL_POOL} (set-up "
+          f"{build_s:.1f} s); {len(log)} probes at k {SUGGEST_K}, cache "
+          f"cleared per micro-batch: wall {wall:.3f} s, {len(log) / wall:.1f} "
+          f"QPS, prefilter kept {kept} of {examined} "
+          f"({kept / examined:.4f}), {counters['count_calls']} count passes, "
+          f"{launches} pair_count launches, {found} suggestions; every answer "
+          f"equals the oracle")
+    report["suggest_small_sets"] = {
+        "sets": len(corpus), "probes": len(log), "setup_s": build_s,
+        "wall_s": wall, "qps": len(log) / wall, "counters": counters,
+        "prefilter_selectivity": kept / examined, "launches": launches,
+        "suggestions": found,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -436,6 +937,7 @@ def main(argv=None) -> int:
     from repro_torch.core.engine import EXEC_COUNTERS
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda, make_count_table
     from repro_torch.kernels.group_intersect import group_match_cuda
     from repro_torch.serve.search import SearchEngine, zipf_query_log
 
@@ -456,14 +958,23 @@ def main(argv=None) -> int:
     for ln in ptxas:
         print("  ptxas:", ln)
     report["build_s"] = build_s
+    phase_s = {"1 build": time.perf_counter() - t_start}
+
+    def phase_done(name: str, since: float) -> float:
+        phase_s[name] = time.perf_counter() - since
+        print(f"phase {name}: {phase_s[name]:.1f} s")
+        return time.perf_counter()
 
     # phases 2 and 3: kernels against their plain versions
+    t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     bf_err, bf_cases = check_bitmap_filter(torch, gen, ops, ref,
                                            bitmap_filter_cuda)
+    t_phase = phase_done("2 bitmap_filter", t_phase)
     gm_err, gm_cases = check_group_match(torch, gen, ops, ref, group_match_cuda)
     torch.cuda.empty_cache()
+    t_phase = phase_done("3 group_match", t_phase)
 
     # phase 4: the slice at paper scale
     t0 = time.perf_counter()
@@ -513,7 +1024,7 @@ def main(argv=None) -> int:
     _, warm_wall = serve_slice(engine, log, postings, torch.cuda.synchronize)
     print(f"phase 4 slice, second pass: wall {warm_wall:.3f} s, "
           f"{len(log) / warm_wall:.1f} queries/s")
-    prof = profile_breakdown(torch, engine, log)
+    prof = profile_breakdown(torch, lambda: engine.query_batch(log))
     print(f"phase 4 profiled pass: wall {prof['wall_s']:.3f} s, device busy "
           f"{prof['device_busy_ms']} ms, share {prof['device_busy_share']}")
     for row in prof["top"][:8]:
@@ -527,10 +1038,30 @@ def main(argv=None) -> int:
         "profile": prof, "bytes": moved,
     }
 
+    t_phase = phase_done("4 slice", t_phase)
+
     # phase 5: checks and times on the main path's data, heaviest shapes
     torch.cuda.empty_cache()
     bf, gm = time_kernels(torch, engine, log, results, ref,
                           bitmap_filter_cuda, group_match_cuda)
+    del engine, results, postings
+    torch.cuda.empty_cache()
+    t_phase = phase_done("5 times", t_phase)
+
+    # phase 6: pair_count against its plain version
+    pc_err, pc_cases = check_pair_count(torch, gen, ref, count_block_cuda,
+                                        make_count_table)
+    torch.cuda.empty_cache()
+    t_phase = phase_done("6 pair_count", t_phase)
+
+    # phase 7: the suggest slice
+    pc_launches, pc = run_suggest_slice(torch, ref, count_block_cuda, report)
+    launches["pair_count"] = pc_launches
+    t_phase = phase_done("7 suggest", t_phase)
+
+    # phase 8: a mix where the pre-filter drops candidates
+    run_small_sets(torch, count_block_cuda, report)
+    t_phase = phase_done("8 small sets", t_phase)
     kernels = [
         {"name": "bitmap_filter", "route": "cuda",
          "source": "src/repro_torch/csrc/bitmap_filter.cu",
@@ -546,18 +1077,29 @@ def main(argv=None) -> int:
          "max_abs_err": max(gm_err, gm["max_abs_err"]),
          "ms": gm["ms"], "plain_ms": gm["plain_ms"], "bound_ms": gm["bound_ms"],
          "bound_by": gm["bound_by"], "library_ms": None},
+        {"name": "pair_count", "route": "cuda",
+         "source": "src/repro_torch/csrc/pair_count.cu",
+         "replaces": "src/repro/kernels/count.py:70",
+         "launches": launches["pair_count"],
+         "max_abs_err": max(pc_err, pc["max_abs_err"]),
+         "ms": pc["ms"], "plain_ms": pc["plain_ms"], "bound_ms": pc["bound_ms"],
+         "bound_by": pc["bound_by"], "library_ms": None},
     ]
     report["kernels"] = kernels
-    report["timed_shapes"] = {"bitmap_filter": bf, "group_match": gm}
+    report["timed_shapes"] = {"bitmap_filter": bf, "group_match": gm,
+                              "pair_count": pc}
     report["checked_shapes"] = {"bitmap_filter": bf_cases,
-                                "group_match": gm_cases}
+                                "group_match": gm_cases,
+                                "pair_count": pc_cases}
+    report["phase_s"] = phase_s
     report["total_s"] = time.perf_counter() - t_start
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=2) + "\n")
 
     print(f"kernels: bitmap_filter={launches['bitmap_filter']} "
-          f"group_match={launches['group_match']}")
+          f"group_match={launches['group_match']} "
+          f"pair_count={launches['pair_count']}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,12 @@ Dispatch is split from collection: :func:`dispatch_device_batch` enqueues
 the pass on the device's stream and returns a :class:`PendingBatch`, whose
 :meth:`~PendingBatch.collect` copies the results to the host, runs any
 overflow re-run and assembles the per-query answers.
+
+The count-only suggestion path (:func:`dispatch_count_batch`) runs a bucket
+of (probe, candidates) rows as one pass: the (B, C) intersection counts
+(``kernels.ops.count_block``, a hand-written CUDA kernel on the card that
+reads the mirrors through a pointer table), then a top-K per row.  It has
+no filter, no survivor buffer and no re-run.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 
 from ..device import Device, resolve_device
 from ..kernels import ops
+from ..kernels.count import CountTable, make_count_table
 from .partition import PrefixIndex
 
 __all__ = [
@@ -42,8 +49,11 @@ __all__ = [
     "ExecCounters",
     "PendingBatch",
     "default_capacity",
+    "default_k_tier",
+    "dispatch_count_batch",
     "dispatch_device_batch",
     "gmax_tier",
+    "intersect_count_batch",
     "intersect_device",
     "intersect_device_batch",
     "set_sort_key",
@@ -64,7 +74,10 @@ class ExecCounters(dict):
       (equal after any drain);
     - ``collect_us``  cumulative microseconds in the blocking collect;
     - ``overlap_high_water``  most buckets in flight at once;
-    - ``result_cache_hits`` / ``result_cache_misses``  result-cache lookups.
+    - ``result_cache_hits`` / ``result_cache_misses``  result-cache lookups;
+    - ``count_calls``  passes of the count-only suggest path;
+    - ``suggest_prefilter_in`` / ``suggest_prefilter_kept``  candidates the
+      suggest pre-filter examined / kept.
 
     Writes and snapshots serialize on one lock; :meth:`bump` does the whole
     read-modify-write under it.
@@ -75,6 +88,7 @@ class ExecCounters(dict):
         "inflight_dispatches", "inflight_collects",
         "collect_us", "overlap_high_water",
         "result_cache_hits", "result_cache_misses",
+        "count_calls", "suggest_prefilter_in", "suggest_prefilter_kept",
     )
 
     def __init__(self):
@@ -380,6 +394,145 @@ def intersect_device(sets: Sequence[DeviceSet], capacity: Optional[int] = None,
     (result, stats), = intersect_device_batch([list(sets)], capacity=capacity,
                                               device=device)
     return result, stats
+
+
+# -- count-only suggestion path ----------------------------------------------
+#
+# A suggest bucket is B (probe, candidates) rows of one shape class: every
+# probe shares (t_p, gmax_p), every candidate (t_c, gmax_c).  One pass
+# computes the (B, c_tier) count matrix and each row's top min(k, c_tier)
+# (slot, count) pairs under the order (-count, slot); callers list
+# candidates by ascending id, so equal counts prefer the smallest id.
+
+
+def default_k_tier(k: int) -> int:
+    """Static top-K selection tier: next power of two, floored at 8.  The
+    requested ``k`` quantizes up to a tier so nearby k values share one
+    bucket signature; the host slices the top ``k_tier`` list down to k.
+    Stored in ``ShapeSig.capacity_tier`` for suggest plans."""
+    return 1 << max(3, (int(k) - 1).bit_length())
+
+
+def _count_signature(queries) -> Tuple[Tuple[int, int], int]:
+    """Validate a suggest bucket and return (ts, c_tier): every probe must
+    share (t, gmax), every candidate must share (t, gmax), and the
+    candidate-axis tier is the pow2 ceiling of the longest row
+    (``ShapeSig.cands`` for planned buckets)."""
+    probe0, cands0 = queries[0]
+    if not len(cands0):
+        raise ValueError("suggest rows need at least one candidate")
+    tp, gp = probe0.t, probe0.gmax
+    tc, gc = cands0[0].t, cands0[0].gmax
+    max_c = 0
+    for probe, cands in queries:
+        if (probe.t, probe.gmax) != (tp, gp):
+            raise ValueError("bucket mixes probe shapes")
+        if not len(cands):
+            raise ValueError("suggest rows need at least one candidate")
+        for c in cands:
+            if (c.t, c.gmax) != (tc, gc):
+                raise ValueError("bucket mixes candidate shapes")
+        max_c = max(max_c, len(cands))
+    return (tp, tc), 1 << (max_c - 1).bit_length()
+
+
+def _pack_count_rows(queries, c_tier: int) -> CountTable:
+    """A bucket's pointer table: each row's probe mirror and candidate
+    mirrors, the candidate axis padded to ``c_tier`` with null slots (the
+    kernel skips them; the JAX package repeats candidate 0 there and masks
+    it off)."""
+    return make_count_table([p.vals for p, _ in queries],
+                            [[c.vals for c in cands] for _, cands in queries],
+                            (queries[0][0].t, queries[0][1][0].t),
+                            c_tier=c_tier)
+
+
+def _top_k_slots(counts: torch.Tensor, k: int) -> torch.Tensor:
+    """``lax.top_k`` over the last axis of (B, C) counts >= -1: (B, k, 2)
+    int32 (slot, count) pairs, larger counts first, equal counts by
+    ascending slot.
+
+    ``torch.topk`` breaks ties in no fixed order, so it runs on the
+    composite key ``((count + 1) << 32) | (C - 1 - slot)``: the keys are
+    unique, and their order is exactly (-count, slot).
+    """
+    C = counts.shape[-1]
+    rev_slot = (C - 1) - torch.arange(C, device=counts.device)
+    key = ((counts.to(torch.int64) + 1) << 32) | rev_slot
+    top = torch.topk(key, k, dim=-1).values
+    top_counts = (top >> 32) - 1
+    top_idx = (C - 1) - (top & 0xFFFFFFFF)
+    return torch.stack([top_idx, top_counts], dim=-1).to(torch.int32)
+
+
+def _intersect_count_batch(table: CountTable, k_sel: int) -> torch.Tensor:
+    """One pass over a packed suggest bucket: (B, k_sel, 2) int32 of
+    (slot, count) pairs per row, best-first.  Padding slots carry count -1,
+    so they rank after every real candidate, in slot order."""
+    counts = ops.count_block(table)                            # (B, C)
+    return _top_k_slots(torch.where(table.real, counts, -1), k_sel)
+
+
+def _collect_count(pairs: torch.Tensor, queries, k_sel: int,
+                   extra_stats: Dict) -> List[Tuple[np.ndarray, Dict]]:
+    """One copy of the (B, k_sel, 2) pairs to the host, split per row."""
+    fetched = pairs.cpu().numpy()
+    return [
+        (fetched[row], {"n_cands": len(cands), "k_sel": k_sel,
+                        "batch_size": len(queries), **extra_stats})
+        for row, (_, cands) in enumerate(queries)
+    ]
+
+
+def dispatch_count_batch(
+    queries: Sequence[Tuple[DeviceSet, Sequence[DeviceSet]]],
+    k: int,
+    device: Device = "cuda",
+) -> PendingBatch:
+    """Enqueue one count-only suggest bucket without blocking.
+
+    ``queries[i]`` is ``(probe, candidates)``, candidates ordered by
+    ascending id by the caller (the tie-break contract), all on
+    ``device``.  ``k`` is the selection tier (``ShapeSig.capacity_tier``
+    for planned buckets); each row gets its top ``min(k, c_tier)`` (slot,
+    count) pairs.  One pass per bucket, counted in ``count_calls``; the
+    count path has no overflow re-run.  The batch runs at its own size B
+    (the JAX package's pow2 B padding only bounded XLA's compile cache).
+    """
+    dev = resolve_device(device)
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    queries = [(p, list(c)) for p, c in queries]
+    ts, c_tier = _count_signature(queries)
+    if queries[0][0].device != dev:
+        raise ValueError(f"set on {queries[0][0].device}, bucket runs on {dev}")
+    k_sel = min(int(k), c_tier)
+    table = _pack_count_rows(queries, c_tier)
+    EXEC_COUNTERS.bump("count_calls")
+    pairs = _intersect_count_batch(table, k_sel)
+    ready = None
+    if dev.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+    extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts)}
+    # the captured ``queries`` hold every mirror the table names until the
+    # collect's copy has waited for the pass
+    return PendingBatch(
+        n_queries=len(queries), ready=ready,
+        _collect=lambda: _collect_count(pairs, queries, k_sel, extra))
+
+
+def intersect_count_batch(
+    queries: Sequence[Tuple[DeviceSet, Sequence[DeviceSet]]],
+    k: int,
+    device: Device = "cuda",
+) -> List[Tuple[np.ndarray, Dict]]:
+    """Count-only suggest bucket, synchronously: per row a (k_sel, 2) int32
+    array of (candidate index, count) pairs, best-first under (-count,
+    smallest index), plus stats (``n_cands``, ``k_sel``, ``batch_size``,
+    ``c_tier``, ``group_tuples``).  Padding slots carry count -1; the
+    serving layer drops counts < 1."""
+    return dispatch_count_batch(queries, k, device=device).collect()
 
 
 class BatchedEngine:

@@ -4,7 +4,9 @@ bucket as ONE pass of ``core.engine``'s two-phase pipeline.
 Every plan in a bucket shares ``ShapeSig(k, ts, gmaxes, capacity_tier)``, so
 the bucket's rows stack into shape-uniform ``(B, …)`` tensors.  Queries
 whose survivor count exceeds the capacity tier are re-run once, as a
-subset, at full capacity.
+subset, at full capacity.  A suggest bucket (``sig.cands > 0``) runs the
+count-only pass instead (``core.engine.dispatch_count_batch``): no survivor
+buffer and no re-run, and ``sig.capacity_tier`` is its top-K tier.
 
 Per-query timing is amortized: each result's stats carry ``batch_us`` (the
 bucket's dispatch-to-collect wall time divided by bucket size).
@@ -30,7 +32,8 @@ from typing import Callable, Dict, Iterable, List, Mapping, Sequence, Tuple
 import numpy as np
 
 from ..core.engine import (
-    EXEC_COUNTERS, DeviceSet, PendingBatch, dispatch_device_batch,
+    EXEC_COUNTERS, DeviceSet, PendingBatch, dispatch_count_batch,
+    dispatch_device_batch,
 )
 from ..device import Device
 from .plan import QueryPlan, ShapeSig, plan_query
@@ -140,11 +143,19 @@ def dispatch_bucket(
 ) -> InFlightBucket:
     """Enqueue ONE same-signature bucket without blocking; ``get_set``
     resolves a planned term to its DeviceSet.  Bumps
-    ``inflight_dispatches``; the pipeline bumps ``batch_calls``."""
+    ``inflight_dispatches``; the pipeline bumps ``batch_calls`` (a suggest
+    bucket's count pass bumps ``count_calls``)."""
     t0 = time.perf_counter()
-    rows = [[get_set(t) for t in plan.terms] for _, plan in items]
-    pending = dispatch_device_batch(rows, capacity=sig.capacity_tier,
-                                    device=device)
+    if sig.cands > 0:
+        # plan.terms is (probe, *candidates), candidates ascending: the
+        # order the count pass's tie-break reads as "smallest id first"
+        rows = [(get_set(plan.terms[0]), [get_set(t) for t in plan.terms[1:]])
+                for _, plan in items]
+        pending = dispatch_count_batch(rows, sig.capacity_tier, device=device)
+    else:
+        rows = [[get_set(t) for t in plan.terms] for _, plan in items]
+        pending = dispatch_device_batch(rows, capacity=sig.capacity_tier,
+                                        device=device)
     EXEC_COUNTERS.bump("inflight_dispatches")
     _inflight_enter()
     return InFlightBucket(sig, items, pending, t0)

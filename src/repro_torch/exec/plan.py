@@ -16,25 +16,40 @@ A query arrives as a bag of terms.  Planning does, in order:
 The planner reads only per-set metadata (``t``, ``gmax``, ``n``), so it works
 the same over host ``PrefixIndex`` objects and device ``DeviceSet`` mirrors,
 and it equals the JAX package's planner on flat conjunctions.
+
+:func:`plan_suggest` plans the count-only suggestion path: one probe against
+one ``(t, gmax_tier)`` class of candidates, keyed by a signature with
+``cands > 0``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping, Optional, Sequence, Tuple
 
-from ..core.engine import default_capacity, gmax_tier, set_sort_key
+from ..core.engine import (
+    default_capacity, default_k_tier, gmax_tier, set_sort_key,
+)
 
-__all__ = ["ShapeSig", "QueryPlan", "plan_query"]
+__all__ = ["ShapeSig", "QueryPlan", "plan_query", "plan_suggest"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSig:
-    """Static shape signature of a device pass — the bucketing key."""
+    """Static shape signature of a device pass — the bucketing key.
+
+    ``cands`` is 0 for point queries and the power-of-two candidate-axis
+    tier (> 0) for count-only suggest plans.  For those, ``ts`` / ``gmaxes``
+    are the ``(probe, candidate class)`` pair in that order (the alignment
+    is direction-aware) and ``capacity_tier`` holds the top-K selection
+    tier (``core.engine.default_k_tier``): the count path has no survivor
+    buffer.
+    """
 
     k: int
     ts: Tuple[int, ...]
     gmaxes: Tuple[int, ...]
     capacity_tier: int
+    cands: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +57,8 @@ class QueryPlan:
     """A normalized, routed query.
 
     ``terms`` are deduped and (t, n, term)-sorted; ``algorithm`` is one of
-    ``"device"`` (bucketed batch path), ``"hashbin"`` (host execution), or
-    ``"empty"`` (a term has no postings).  ``sig`` is set iff
+    ``"device"`` (bucketed batch path), ``"hashbin"`` / ``"host"`` (host
+    execution), or ``"empty"`` (a term has no postings).  ``sig`` is set iff
     ``algorithm == "device"``.
     """
 
@@ -55,7 +70,10 @@ class QueryPlan:
         """Result-cache key: every surface form of one conjunction (``[a,
         b]``, ``[b, a]``, ``[a, a, b]``) normalizes to the same ``terms``.
         The routing algorithm is part of the key so an entry never outlives
-        a routing change."""
+        a routing change.  Suggest plans key apart, with their selection
+        tier, so ``suggest(id, 8)`` never serves ``suggest(id, 64)``."""
+        if self.sig is not None and self.sig.cands:
+            return ("suggest", (self.terms, self.sig.capacity_tier))
         return (self.algorithm, self.terms)
 
 
@@ -93,3 +111,45 @@ def plan_query(
         capacity_tier=default_capacity(ts),
     )
     return QueryPlan(terms=tuple(uniq), algorithm="device", sig=sig)
+
+
+def plan_suggest(
+    index: Mapping,
+    probe,
+    candidates: Sequence,
+    k: int,
+    device: bool = True,
+) -> QueryPlan:
+    """Plan one count-only suggest bucket row: ``probe`` scored against a
+    class of ``candidates`` that share one ``(t, gmax_tier)`` shape (a
+    bucket's count pass needs uniform candidate shapes; the serving layer
+    splits a request's candidates into classes and merges their top lists).
+
+    ``terms`` are ``(probe, *candidates)`` with the candidates deduped and
+    sorted ascending — the tie-break contract: equal counts prefer the
+    lowest slot, so the smallest id wins.  ``sig.ts`` / ``sig.gmaxes`` are
+    the ``(probe, candidate)`` pair, ``sig.cands`` the pow2 candidate-axis
+    tier and ``sig.capacity_tier`` the pow2 top-K selection tier.  An
+    unknown probe or candidate, or no candidates, plans ``"empty"``;
+    ``device=False`` plans ``"host"``.  Mixed candidate classes raise
+    ``ValueError``.
+    """
+    if probe not in index or not candidates:
+        return QueryPlan(terms=(probe, *candidates), algorithm="empty")
+    cands = sorted(set(candidates))
+    if any(c not in index for c in cands):
+        return QueryPlan(terms=(probe, *cands), algorithm="empty")
+    tp, gp = index[probe].t, gmax_tier(index[probe].gmax)
+    tc, gc = index[cands[0]].t, gmax_tier(index[cands[0]].gmax)
+    for c in cands[1:]:
+        if (index[c].t, gmax_tier(index[c].gmax)) != (tc, gc):
+            raise ValueError("plan_suggest candidates must share one "
+                             "(t, gmax_tier) class")
+    if not device:
+        return QueryPlan(terms=(probe, *cands), algorithm="host")
+    sig = ShapeSig(
+        k=2, ts=(tp, tc), gmaxes=(gp, gc),
+        capacity_tier=default_k_tier(k),
+        cands=1 << max(0, (len(cands) - 1).bit_length()),
+    )
+    return QueryPlan(terms=(probe, *cands), algorithm="device", sig=sig)

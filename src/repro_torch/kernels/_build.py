@@ -114,6 +114,9 @@ def library() -> ctypes.CDLL:
             lib.repro_bitmap_filter.restype = i32
             lib.repro_group_match.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             lib.repro_group_match.restype = i32
+            lib.repro_pair_count.argtypes = [vp, vp, i64, i32, i32, i32, i32,
+                                             i32, vp]
+            lib.repro_pair_count.restype = i32
             lib.repro_cuda_error_string.argtypes = [i32]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

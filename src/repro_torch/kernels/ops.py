@@ -10,9 +10,10 @@ import torch
 
 from . import ref
 from .bitmap_filter import bitmap_filter_cuda
+from .count import CountTable, count_block_cuda
 from .group_intersect import group_match_cuda
 
-__all__ = ["bitmap_filter", "group_match"]
+__all__ = ["bitmap_filter", "count_block", "group_match"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -36,3 +37,13 @@ def group_match(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
     if _route(a_vals) == "cuda":
         return group_match_cuda(a_vals, b_vals)
     return ref.group_match_ref(a_vals, b_vals)
+
+
+def count_block(table: CountTable) -> torch.Tensor:
+    """A packed suggest bucket (``kernels.count.make_count_table``) ->
+    (B, c_tier) int32 intersection counts of every probe with each of its
+    candidates; padding slots count 0."""
+    if _route(table.ptrs) == "cuda":
+        return count_block_cuda(table)
+    return ref.count_block_ref(table.probes, table.cands, table.ts,
+                               c_tier=table.c_tier)

@@ -151,7 +151,7 @@ def test_build_sources_and_digest(tmp_path, monkeypatch):
     """The library is keyed by a hash of its sources and flags: a changed
     source gets a new library name, an unchanged one the same."""
     names = [p.name for p in _build.sources()]
-    assert {"bitmap_filter.cu", "group_match.cu"} <= set(names)
+    assert {"bitmap_filter.cu", "group_match.cu", "pair_count.cu"} <= set(names)
     for src in _build.sources():
         text = src.read_text()
         assert 'extern "C"' in text
