@@ -13,7 +13,12 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
   2. bitmap_filter — the phase-1 kernel against its plain PyTorch version on
                the card, over the main path's widths and odd edge shapes;
                outputs must be bit-identical.
-  3. group_match — the same for the phase-2 kernel.
+  3. group_match — the same for the phase-2 kernel, plus edge cases from
+               a generator of their own (``EDGE_KINDS``): rows filled
+               from the left with a -1 tail, rows with no -1, rows of
+               only -1 on either side, repeats within a row, widths of
+               1, 3, 5 and 33, and rows that start off a 16-byte
+               boundary.
   4. slice   — the paper-scale index (constants below) served through
                ``SearchEngine(postings, device="cuda").query_batch``: every
                answer must equal the numpy oracle, both kernels must have
@@ -25,11 +30,14 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                and the planted pair's overflow re-run at capacity G), then
                each kernel and its plain version timed with CUDA events on
                that first pass's inputs, beside the least time the card
-               could take (``bound_ms``).
+               could take (``bound_ms``), its share of it and the earlier
+               design's time; for ``group_match`` also the compares of
+               real elements beside the padded count.
   6. pair_count — the suggest path's count kernel against its plain version
                on the card, bit for bit: both alignment directions and equal
                depths, g tiers 8-128, (B, C) up to (16, 1024), all-sentinel
-               probes, disjoint and identical sets.
+               probes, disjoint and identical sets, plus mirrors of the
+               edge kinds of phase 3 at the path's tiers and odd widths.
   7. suggest — a corpus of 1024 sets (sizes log-uniform in [2^12, 2^16],
                ids uniform in [0, 2^24)) plus two copies of set 0, written
                as RSI1 records and ingested into ``SuggestEngine(...,
@@ -43,7 +51,8 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                checked on the heaviest count bucket of each alignment
                direction (its own table) and timed on the heaviest of all,
                beside the compares of real elements it needs
-               (``bound_ms``).
+               (``bound_ms``), its share of it and the earlier design's
+               time.
   8. small sets — 4096 sets of 4-16 elements from a shared pool, where the
                hash-bin pre-filter drops most candidates: 64 Zipf probes,
                cache cleared per micro-batch, every answer against the
@@ -103,6 +112,9 @@ HBM_BYTES_PER_S = 3.35e12
 # int32 compares: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 TIME_ITERS = 20
+# the earlier design's times at the same shapes (it scanned every -1 slot;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+EARLIER_MS = {"group_match": 0.9724, "pair_count": 3.4446}
 PLAIN_COUNT_ITERS = 3        # count_block_ref takes ~a second at its heaviest
 
 
@@ -185,6 +197,41 @@ def random_rows(torch, gen, shape, device="cuda"):
     return x
 
 
+def edge_rows(torch, gen, kind, shape, device="cuda"):
+    """Rows of the edge cases, each (..., g): ``left``, a real prefix of
+    random length and a -1 tail, as ``DeviceSet`` pads its mirrors;
+    ``full``, no -1; ``pad``, only -1; ``dup``, values from 0-7 (repeats
+    within a row) with -1 at random places; ``random``, as ``random_rows``."""
+    if kind == "pad":
+        return torch.full(shape, -1, dtype=torch.int32, device=device)
+    hi = 8 if kind == "dup" else 500
+    x = torch.randint(0, hi, shape, dtype=torch.int32, generator=gen,
+                      device=device)
+    if kind == "left":
+        real = torch.randint(0, shape[-1] + 1, shape[:-1] + (1,),
+                             generator=gen, device=device)
+        x[torch.arange(shape[-1], device=device) >= real] = -1
+    elif kind in ("dup", "random"):
+        x[torch.rand(shape, generator=gen, device=device) < 0.25] = -1
+    return x
+
+
+def misaligned(torch, x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary, so the kernels take their scalar loads."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# (a, b) kinds of the edge cases: left-filled, full, all -1 on each side and
+# both, duplicates, and mixes
+EDGE_KINDS = (("left", "left"), ("full", "full"), ("pad", "full"),
+              ("full", "pad"), ("pad", "pad"), ("dup", "dup"),
+              ("left", "dup"), ("random", "left"))
+
+
 def max_abs_err(torch, out, want) -> int:
     require(out.shape == want.shape and out.dtype == want.dtype,
             f"shape/dtype {tuple(out.shape)} {out.dtype} vs "
@@ -249,9 +296,42 @@ def check_group_match(torch, gen, ops, ref, group_match_cuda):
     pad = torch.full((64, 16), -1, dtype=torch.int32, device="cuda")
     require(not bool(group_match_cuda(pad, pad).any()),
             "group_match matched padding")
-    print(f"phase 3 group_match: {len(cases) + 2} shapes bit-identical to "
-          f"the plain version")
-    return worst, len(cases) + 2
+    n_edge = check_group_match_edges(torch, ref, group_match_cuda)
+    print(f"phase 3 group_match: {len(cases) + 2} shapes and {n_edge} edge "
+          f"cases bit-identical to the plain version")
+    return worst, len(cases) + 2 + n_edge
+
+
+def check_group_match_edges(torch, ref, group_match_cuda) -> int:
+    """``group_match`` bit for bit against ``group_match_ref`` on the edge
+    cases (``EDGE_KINDS`` on each side), at the path's widths and at widths
+    of 1, 3, 5 and 33, plus misaligned rows.  Its own generator, so the
+    seeded cases before and after draw what they always drew."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    widths = ((32, 32), (16, 64), (1, 1), (3, 5), (5, 33), (33, 3),
+              (33, 33), (1, 33), (33, 1), (3, 3))
+    n = 0
+    for ka, kb in EDGE_KINDS + (("random", "random"),):
+        for S in (37, 4099):
+            for ga, gb in widths:
+                a = edge_rows(torch, gen, ka, (S, ga))
+                b = edge_rows(torch, gen, kb, (S, gb))
+                pairs = [(a, b)]
+                if (ga, gb) == (32, 32):
+                    pairs.append((misaligned(torch, a), misaligned(torch, b)))
+                for x, y in pairs:
+                    out = group_match_cuda(x, y)
+                    want = ref.group_match_ref(x, y)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(torch, out, want)
+                    require(err == 0, f"group_match edge {ka}/{kb} "
+                                      f"{(S, ga, gb)}: max_abs_err {err}")
+                    if "pad" in (ka, kb):
+                        require(not bool(out.any()),
+                                f"group_match edge {ka}/{kb} matched -1")
+                    n += 1
+    return n
 
 
 # -- phase 6: pair_count against its plain version --------------------------
@@ -321,8 +401,46 @@ def check_pair_count(torch, gen, ref, count_block_cuda, make_count_table):
         worst = max(worst, check_count_table(torch, ref, count_block_cuda,
                                              table))
         n += 1
-    print(f"phase 6 pair_count: {n} tables bit-identical to the plain version")
-    return worst, n
+    n_edge = check_pair_count_edges(torch, ref, count_block_cuda,
+                                    make_count_table)
+    print(f"phase 6 pair_count: {n} tables and {n_edge} edge-case tables "
+          f"bit-identical to the plain version")
+    return worst, n + n_edge
+
+
+def check_pair_count_edges(torch, ref, count_block_cuda, make_count_table
+                           ) -> int:
+    """``pair_count`` bit for bit against ``count_block_ref`` on mirrors of
+    the edge kinds (``EDGE_KINDS``: probe kind, candidate kind) in both
+    alignment directions and at equal depths, at the path's g tiers and at
+    odd widths, plus misaligned mirrors.  Its own generator, so the seeded
+    tables draw what they always drew."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    n = 0
+    for tp, tc in ((7, 4), (5, 5), (3, 6)):
+        for gp, gc in ((32, 32), (8, 128), (3, 5), (33, 8)):
+            for kp, kc in EDGE_KINDS:
+                probes = [edge_rows(torch, gen, kp, (1 << tp, gp))
+                          for _ in range(4)]
+                pool = [edge_rows(torch, gen, kc, (1 << tc, gc))
+                        for _ in range(4)]
+                tables = [([probes[b] for b in range(4)],
+                           [[pool[(b + j) % 4] for j in range(3 - b % 2)]
+                            for b in range(4)])]
+                if (gp, gc) == (32, 32):
+                    tables.append(([misaligned(torch, x) for x in probes],
+                                   [[misaligned(torch, x) for x in row]
+                                    for row in tables[0][1]]))
+                for ps, cs in tables:
+                    table = make_count_table(ps, cs, (tp, tc), c_tier=4)
+                    err = check_count_table(torch, ref, count_block_cuda,
+                                            table)
+                    require(err == 0, f"pair_count edge {kp}/{kc} ts "
+                                      f"{(tp, tc)} g {(gp, gc)}: "
+                                      f"max_abs_err {err}")
+                    n += 1
+    return n
 
 
 # -- phase 5: times ---------------------------------------------------------
@@ -464,6 +582,9 @@ def time_kernels(torch, engine, log, results, ref, bitmap_filter_cuda,
     S, ga, gb = a.numel() // a.shape[-1], a.shape[-1], b.shape[-1]
     gm_bytes = S * (ga + gb) * 4 + S * ga
     compares = S * ga * gb
+    # the compares of real elements: real A x real B, summed over the rows
+    real_compares = int(((a != -1).sum(-1, dtype=torch.int64)
+                         * (b != -1).sum(-1, dtype=torch.int64)).sum())
     bytes_ms = gm_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = compares / INT32_OPS_PER_S * 1e3
     gm = {
@@ -474,14 +595,21 @@ def time_kernels(torch, engine, log, results, ref, bitmap_filter_cuda,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": gm_bytes,
         "compares": compares,
+        "real_compares": real_compares,
         "max_abs_err": gm_err,
     }
+    gm["share_of_bound"] = gm["bound_ms"] / gm["ms"]
+    gm["earlier_ms"] = EARLIER_MS["group_match"]
     print(f"phase 5 bitmap_filter at {bf['shape']}: {bf['ms']:.4f} ms "
           f"(plain {bf['plain_ms']:.4f} ms), {bf_bytes} bytes, bound "
           f"{bf['bound_ms']:.4f} ms at {HBM_BYTES_PER_S:.3g} B/s")
     print(f"phase 5 group_match at {gm['shape']}: {gm['ms']:.4f} ms "
-          f"(plain {gm['plain_ms']:.4f} ms), {gm_bytes} bytes, {compares} "
-          f"compares, bound {gm['bound_ms']:.4f} ms ({gm['bound_by']})")
+          f"(plain {gm['plain_ms']:.4f} ms; earlier design "
+          f"{gm['earlier_ms']:.4f} ms), {gm_bytes} bytes, {compares} "
+          f"compares at the padded tiers of which {real_compares} "
+          f"({real_compares / compares:.4f}) are of real elements, bound "
+          f"{gm['bound_ms']:.4f} ms ({gm['bound_by']}), "
+          f"{gm['share_of_bound']:.1%} of it")
     return bf, gm
 
 
@@ -532,6 +660,9 @@ def profile_breakdown(torch, run):
         "device_busy_ms": busy_ms if rows else None,
         "device_busy_share": busy_ms / (wall * 1e3) if rows else None,
         "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:12]],
+        # each kernel's device ms over all its rows (one per template width)
+        "kernel_ms": {k: sum(ms for n, ms, _ in rows if k in n)
+                      for k in ("bitmap_filter", "group_match", "pair_count")},
     }
 
 
@@ -723,12 +854,15 @@ def time_pair_count(torch, ref, count_block_cuda, buckets, works):
             table.probes, table.cands, table.ts, c_tier=table.c_tier),
             iters=PLAIN_COUNT_ITERS),
         **work, "max_abs_err": 0,
+        "earlier_ms": EARLIER_MS["pair_count"],
     }
+    out["share_of_bound"] = work["bound_ms"] / out["ms"]
     print(f"phase 7 pair_count timed on ts {sig.ts}: {out['ms']:.4f} ms "
-          f"(plain {out['plain_ms']:.4f} ms); {work['compares']} compares of "
+          f"(plain {out['plain_ms']:.4f} ms; earlier design "
+          f"{out['earlier_ms']:.4f} ms); {work['compares']} compares of "
           f"real elements ({work['tile_compares']} at the TPU's padded "
           f"tiles), {work['bytes']} bytes, bound {work['bound_ms']:.4f} ms "
-          f"({work['bound_by']})")
+          f"({work['bound_by']}), {out['share_of_bound']:.1%} of it")
     return out
 
 
@@ -841,7 +975,7 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
             engine.suggest_batch([(s, SUGGEST_K) for s in log[i:i + SUGGEST_BATCH]])
 
     prof = profile_breakdown(torch, uncached_pass)
-    kernel_ms = sum(r["ms"] for r in prof["top"] if "pair_count" in r["name"])
+    kernel_ms = prof["kernel_ms"]["pair_count"]
     print(f"phase 7 profiled uncached pass: wall {prof['wall_s']:.3f} s, "
           f"device busy {prof['device_busy_ms']} ms, share "
           f"{prof['device_busy_share']}; pair_count {kernel_ms:.3f} ms against "
@@ -1026,7 +1160,9 @@ def main(argv=None) -> int:
           f"{len(log) / warm_wall:.1f} queries/s")
     prof = profile_breakdown(torch, lambda: engine.query_batch(log))
     print(f"phase 4 profiled pass: wall {prof['wall_s']:.3f} s, device busy "
-          f"{prof['device_busy_ms']} ms, share {prof['device_busy_share']}")
+          f"{prof['device_busy_ms']} ms, share {prof['device_busy_share']}; "
+          f"bitmap_filter {prof['kernel_ms']['bitmap_filter']:.3f} ms, "
+          f"group_match {prof['kernel_ms']['group_match']:.3f} ms")
     for row in prof["top"][:8]:
         print(f"  {row['ms']:10.3f} ms  {row['calls']:6d}x  {row['name'][:90]}")
     report["slice"] = {

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_rows import padded_rows
 from repro.kernels import ref as jref
 from repro.kernels.bitmap_filter import bitmap_filter_pallas
 from repro.kernels.group_intersect import group_match_pallas
@@ -114,6 +115,23 @@ def test_group_match_batched(B, S):
     assert out.shape == (B, S, 16)
     for i in range(B):
         np.testing.assert_array_equal(out[i], check_match(a[i], b[i]))
+
+
+@pytest.mark.parametrize("kind_a,kind_b", [
+    ("left", "left"), ("full", "full"), ("pad", "full"), ("full", "pad"),
+    ("interior", "interior"), ("left", "interior")])
+@pytest.mark.parametrize("ga,gb", [(1, 1), (3, 33), (33, 3), (32, 32)])
+def test_group_match_padding_layouts(kind_a, kind_b, ga, gb):
+    """The contract the CUDA kernel keeps whatever the rows' layout: -1
+    wherever it lies never matches, repeats in B count once, and widths
+    need not be multiples of 4."""
+    rng = np.random.default_rng(ga * 100 + gb)
+    a = padded_rows(rng, kind_a, (19, ga))
+    b = padded_rows(rng, kind_b, (19, gb))
+    out = check_match(a, b)
+    want = np.array([[v != -1 and v in set(b[s]) for v in a[s]]
+                     for s in range(len(a))])
+    np.testing.assert_array_equal(out, want)
 
 
 def test_group_match_sentinel_never_matches():

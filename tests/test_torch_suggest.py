@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_rows import padded_rows
 from repro.core import hashing as jhashing
 from repro.core import partition as jpartition
 from repro.core.engine import (
@@ -99,6 +100,26 @@ def test_pair_count_ref_matches_jax(s, ga, gb):
                      for i in range(s)], np.int32)
     got = ref.pair_count_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(jax_pair_count_ref(a, b)))
+    np.testing.assert_array_equal(
+        got, np.asarray(pair_count_pallas(a, b, interpret=True)))
+
+
+@pytest.mark.parametrize("kind_a,kind_b", [
+    ("left", "left"), ("full", "full"), ("pad", "full"), ("full", "pad"),
+    ("interior", "interior")])
+@pytest.mark.parametrize("ga,gb", [(1, 3), (3, 33), (33, 1)])
+def test_pair_count_ref_padding_layouts(kind_a, kind_b, ga, gb):
+    """The contract the CUDA kernel keeps whatever the rows' layout: an A
+    element counts once if it is real and occurs in its B row, however
+    often; -1 wherever it lies counts nothing; odd widths."""
+    rng = np.random.default_rng(ga * 100 + gb)
+    a = padded_rows(rng, kind_a, (17, ga))
+    b = padded_rows(rng, kind_b, (17, gb))
+    want = np.array([sum(v != -1 and v in set(b[s]) for v in a[s])
+                     for s in range(len(a))], np.int32)
+    got = ref.pair_count_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.asarray(jax_pair_count_ref(a, b)))
     np.testing.assert_array_equal(
