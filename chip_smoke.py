@@ -41,10 +41,13 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
   7. suggest — a corpus of 1024 sets (sizes log-uniform in [2^12, 2^16],
                ids uniform in [0, 2^24)) plus two copies of set 0, written
                as RSI1 records and ingested into ``SuggestEngine(...,
-               device="cuda")``; 256 Zipf probes at k 8 in micro-batches of
-               16, once with the result cache and once with it cleared per
-               micro-batch, then one batch at k 1, 20 and 100.  Every answer
-               must equal a scipy.sparse incidence-product oracle, probing
+               device="cuda")``; the probes are warmed through
+               ``SuggestEngine.warm`` at every tier up to 16 rows; 256 Zipf
+               probes at k 8 in micro-batches of 16, once with the result
+               cache and once with it cleared per micro-batch, then one
+               batch at k 1, 20 and 100, all with no ``count_traces``.
+               Every answer must equal a scipy.sparse incidence-product
+               oracle, probing
                the second copy must rank set 0 before the first copy, and
                buckets of both alignment directions must run.  A profiled
                pass gives the device-time breakdown; ``pair_count`` is then
@@ -57,11 +60,47 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                hash-bin pre-filter drops most candidates: 64 Zipf probes,
                cache cleared per micro-batch, every answer against the
                oracle.
+  9. online front end — ``AsyncSearchEngine(..., device="cuda")`` over
+               phase 4's index (its preprocessed lists shared, mirrors
+               built anew), on a 513-query ``repeated_query_log`` (64
+               distinct, plus the planted pair once):
+               9a  the admission policy on a virtual clock, as
+                   ``benchmarks/fig_admission_latency.py`` drives it:
+                   warmed at tiers 1-8, arrivals every 250 us, flush tier
+                   8, result cache on, deadlines 1000, 2000 and 5000 us;
+                   per deadline every answer equals the oracle, the p99
+                   wait is within the deadline (+0.5 us), no trace at
+                   serve time, every ticket resolved;
+               9b  the background flusher on the wall clock: the log's
+                   first 256 queries, open loop from 4 submitter threads
+                   (each submit stamped with its scheduled arrival) at
+                   0.5x and 0.9x of what ``query_batch`` sustains on them
+                   in this run; flush tier 64, deadline 2000 us, window 8,
+                   cache off; every answer equals the oracle, every ticket
+                   resolves and no flusher thread survives ``stop()``;
+                   prints waits, end-to-end latency, overlap and flush
+                   causes, and a profiled run's device busy share;
+               9c  adaptive capacity: the planted pair served 8 times with
+                   ``CapacityModel(min_observations=4)``: at least one
+                   promotion and no re-run after it;
+               9d  the window on one card: a light bucket, then phase 5's
+                   heaviest first-pass bucket, then the light bucket's
+                   collect, with the side-stream copy and with a plain
+                   ``.cpu()`` (``plain_copy_collect``), in turns; prints
+                   the light collect's time and whether the heavy bucket
+                   was still running (a measurement, not a check).
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
-there is no GPU, a kernel does not build, launch or agree, or any answer is
-wrong.  The last lines are the
-kernel table as JSON and ``{"ok": true, "device": {...}}``.  ``--report``
+there is no GPU, a kernel does not build, launch or agree, a kernel is not
+launched on one of its paths, or any answer is wrong.  A path's launches
+are counted with every count set to 0 just before each of its runs and
+read just after it: ``query_batch`` (phase 4), ``suggest_batch`` (phase 7,
+after warming), ``SuggestEngine.warm`` (phase 7), ``suggest_batch small
+sets`` (phase 8), ``AsyncSearchEngine.warm`` (9a), ``async 9a virtual
+clock``, ``async 9b flusher`` (its ``query_batch`` baseline excluded) and
+``async 9c adaptive``.  The last lines are the kernel table as JSON (each
+kernel's ``launches`` on its main path, phase 4 or 7, and
+``launches_by_path``) and ``{"ok": true, "device": {...}}``.  ``--report``
 writes a fuller JSON report (every count, time and profile row) to PATH.
 """
 from __future__ import annotations
@@ -72,6 +111,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -106,6 +146,20 @@ SMALL_SETS = 4096            # sizes uniform in [SMALL_MIN_LEN, SMALL_MAX_LEN]
 SMALL_MIN_LEN, SMALL_MAX_LEN = 4, 16
 SMALL_POOL = 4096            # shared element pool (fig_suggest_qps.py's default)
 SMALL_PROBES = 64
+
+# -- the online front end on phase 4's index (phase 9) ------------------------
+ASYNC_QUERIES = 512          # repeated_query_log(range(N_TERMS), ...) plus
+ASYNC_DISTINCT = 64          # the planted pair, inserted once
+ASYNC_FLUSH_TIER = 8         # 9a: virtual clock, warmed at pow2_tiers(8)
+ASYNC_GAP_US = 250.0
+ASYNC_DEADLINES_US = (1000.0, 2000.0, 5000.0)
+ASYNC_CACHE = 1024
+FLUSHER_QUERIES = 256        # 9b: the log's first 256, background flusher
+FLUSHER_RATES = (0.5, 0.9)   # of the queries/s query_batch sustains on them
+FLUSHER_THREADS = 4
+FLUSHER_TIER, FLUSHER_DEADLINE_US, FLUSHER_INFLIGHT = 64, 2000.0, 8
+FLUSHER_PROFILED = 128       # queries in 9b's profiled run
+ADAPTIVE_REPEATS = 8         # 9c: serves of the planted pair
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -870,9 +924,9 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
     """Phase 7: build the corpus, ingest it through the port's RSI1 reader,
     serve the Zipf probe log cached and uncached and a mixed-k batch, all
     against the oracle; profile a pass; check and time ``pair_count`` on
-    the heaviest bucket.  Returns (pair_count launches on the path, kernel
-    times)."""
-    from repro_torch.core.engine import EXEC_COUNTERS
+    the heaviest bucket.  Returns (pair_count launches on the path, its
+    launches while warming, kernel times)."""
+    from repro_torch.core.engine import EXEC_COUNTERS, pow2_tiers
     from repro_torch.data.ingest import ingest_file, write_records
     from repro_torch.serve.search import SuggestEngine
 
@@ -911,6 +965,26 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
     oracle_s = time.perf_counter() - t0
 
     sync = torch.cuda.synchronize
+    # warm what the probe log and the mixed-k batch will meet, at every
+    # tier up to a micro-batch (and up to the mixed batch's rows)
+    t0 = time.perf_counter()
+    EXEC_COUNTERS.reset()
+    count_block_cuda.launches = 0
+    warmed = len(engine.warm(sorted(set(log)), SUGGEST_K,
+                             b_tiers=pow2_tiers(SUGGEST_BATCH)))
+    mixed_ids = sorted({sid for sid, _ in mixed})
+    for k in SUGGEST_MIXED_K:
+        warmed += len(engine.warm(mixed_ids, k,
+                                  b_tiers=pow2_tiers(SUGGEST_BATCH)))
+    sync()
+    warm_s = time.perf_counter() - t0
+    warm_launches = count_block_cuda.launches
+    warm = EXEC_COUNTERS.snapshot()
+    require(warm_launches > 0, "pair_count never launched while warming")
+    print(f"phase 7 warm: {warmed} count signatures at tiers "
+          f"{pow2_tiers(SUGGEST_BATCH)}, {warm['warm_executions']} warm "
+          f"executions, {warm_launches} pair_count launches, "
+          f"{warm['count_traces']} traces, {warm_s:.1f} s")
     count_block_cuda.launches = 0
     EXEC_COUNTERS.reset()
     cached, cached_wall = serve_suggest(engine, log, SUGGEST_K, SUGGEST_BATCH,
@@ -923,12 +997,18 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
     counters = EXEC_COUNTERS.snapshot()
     uncached_launches = count_block_cuda.launches - cached_launches
     engine.cache.invalidate()
+    EXEC_COUNTERS.reset()
     sync()
     t0 = time.perf_counter()
     got = engine.suggest_batch(mixed)
     sync()
     mixed_wall = time.perf_counter() - t0
+    mixed_traces = EXEC_COUNTERS["count_traces"]
     launches = count_block_cuda.launches
+    serve_traces = (cached_counters["count_traces"], counters["count_traces"],
+                    mixed_traces)
+    require(serve_traces == (0, 0, 0),
+            f"count_traces while serving after warming: {serve_traces}")
     for (sid, k), res in zip(mixed, got):
         require(res.suggestions == oracle.topk(sid, k),
                 f"suggest({sid}, {k}) disagrees with the oracle")
@@ -955,7 +1035,7 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
           f"wall {cached_wall:.3f} s, "
           f"{len(log) / cached_wall:.1f} QPS, {hits} cache hits, "
           f"{cached_counters['count_calls']} count passes, {cached_launches} "
-          f"pair_count launches")
+          f"pair_count launches, serve-time count_traces 0")
     print(f"phase 7 suggest, cache cleared per micro-batch: wall {wall:.3f} s, "
           f"{len(log) / wall:.1f} QPS, {counters['count_calls']} count passes, "
           f"{uncached_launches} pair_count launches, {len(buckets)} buckets "
@@ -998,8 +1078,10 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
         "tile_compares": tile_compares, "pass_bound_ms": pass_bound_ms, "profiled_pair_count_ms": kernel_ms,
         "classes": {f"{t},{g}": n for (t, g), n in sorted(classes.items())},
         "mixed_wall_s": mixed_wall, "profile": prof, "pair_count": timed,
+        "warm": {"signatures": warmed, "s": warm_s, "counters": warm,
+                 "launches": warm_launches},
     }
-    return launches, timed
+    return launches, warm_launches, timed
 
 
 def make_small_corpus(seed: int = SEED, n_sets: int = SMALL_SETS,
@@ -1014,10 +1096,11 @@ def make_small_corpus(seed: int = SEED, n_sets: int = SMALL_SETS,
             for sid, n in enumerate(rng.integers(min_len, max_len + 1, n_sets))}
 
 
-def run_small_sets(torch, count_block_cuda, report) -> None:
+def run_small_sets(torch, count_block_cuda, report) -> int:
     """Phase 8: small sets fill few of the 256 hash bins, so the pre-filter
     drops most candidates; Zipf probes served with the cache cleared per
-    micro-batch must still equal the oracle."""
+    micro-batch must still equal the oracle.  Returns ``pair_count``'s
+    launches there."""
     from repro_torch.core.engine import EXEC_COUNTERS
     from repro_torch.serve.search import SuggestEngine
 
@@ -1055,6 +1138,433 @@ def run_small_sets(torch, count_block_cuda, report) -> None:
         "prefilter_selectivity": kept / examined, "launches": launches,
         "suggestions": found,
     }
+    return launches
+
+
+# -- phase 9: the online front end --------------------------------------------
+
+class SimClock:
+    """Virtual clock (seconds); the caller advances it explicitly."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def async_engine(base, device, **kw):
+    """An ``AsyncSearchEngine`` over ``base``'s index.  The PrefixIndexes
+    preprocessed in phase 4 are shared (preprocessing the 40.3M elements
+    again takes about a minute); the device mirrors are built anew."""
+    from repro_torch.serve.search import AsyncSearchEngine
+
+    eng = AsyncSearchEngine({}, w=W_BITS, m=M_IMAGES, seed=SEED,
+                            device=device, **kw)
+    for term, idx in base.index.items():
+        eng.index[term] = idx
+        eng.device.add(term, idx)
+    return eng
+
+
+class MemoOracle:
+    """``oracle`` once per distinct query: phase 9's log repeats a few dozen
+    conjunctions over lists of up to 2^23 elements."""
+
+    def __init__(self, postings):
+        self.postings, self.answers = postings, {}
+
+    def __call__(self, q) -> np.ndarray:
+        key = tuple(q)
+        if key not in self.answers:
+            self.answers[key] = oracle(self.postings, q)
+        return self.answers[key]
+
+
+def check_tickets(log, tickets, want, what: str) -> None:
+    """Every ticket resolved, without error, to the oracle's answer."""
+    require(len(tickets) == len(log), f"{what}: {len(tickets)} tickets")
+    for q, t in zip(log, tickets):
+        require(t.done and t.error is None, f"{what}: ticket of {q} "
+                                            f"unresolved or failed: {t.error}")
+        require(np.array_equal(t.value.doc_ids, want(q)),
+                f"{what}: query {q} disagrees with the oracle")
+
+
+def virtual_clock_run(eng, log, want, deadline_us: float,
+                      flush_tier: int, gap_us: float) -> dict:
+    """Phase 9a, one deadline: open-loop arrivals every ``gap_us`` on a
+    virtual clock, pumping at each due deadline as a serving
+    loop sleeping on ``next_deadline_in_us`` would (as
+    ``benchmarks/fig_admission_latency.py::serve_run`` drives the JAX
+    package), each bucket executed for real on the device."""
+    from repro_torch.core.engine import EXEC_COUNTERS
+    from repro_torch.serve.admission import AdmissionQueue
+
+    clk = SimClock()
+    eng.clock = clk
+    eng.cache.clear()
+    eng.admission = AdmissionQueue(flush_tier=flush_tier,
+                                   deadline_us=deadline_us, clock=clk)
+    EXEC_COUNTERS.reset()
+    tickets = []
+
+    def pump_until(t_target):
+        while True:
+            nd = eng.admission.next_deadline_in_us()
+            if nd is None:
+                break
+            t_deadline = clk.t + nd * 1e-6
+            if t_target is not None and t_deadline > t_target:
+                break
+            clk.t = max(clk.t, t_deadline)
+            eng.pump()
+
+    t0 = time.perf_counter()
+    for i, q in enumerate(log):
+        t_arrival = i * gap_us * 1e-6
+        pump_until(t_arrival)
+        clk.t = t_arrival
+        tickets.append(eng.submit(q))
+    pump_until(None)
+    wall = time.perf_counter() - t0
+    counters = EXEC_COUNTERS.snapshot()
+    require(eng.pending() == 0, "9a: queries left in the queue")
+    check_tickets(log, tickets, want, f"9a deadline {deadline_us}")
+    queued = [t for t in tickets if t.value.stats.get("batch_size")
+              and not t.value.stats.get("cached")]
+    waits = np.asarray([t.wait_us for t in queued])
+    bucket_s = sum(t.value.stats["batch_us"] for t in queued) * 1e-6
+    hits, misses = (counters["result_cache_hits"],
+                    counters["result_cache_misses"])
+    out = {
+        "deadline_us": deadline_us, "queries": len(log),
+        "offered_qps": 1e6 / gap_us, "served_qps": len(log) / clk.t,
+        "virtual_s": clk.t, "wall_s": wall,
+        # real bucket seconds (dispatch to collect, host clock) per
+        # virtual second; not a device busy share
+        "bucket_wall_per_virtual_s": bucket_s / clk.t,
+        "queued_queries": len(queued),
+        "p50_wait_us": float(np.percentile(waits, 50)),
+        "p99_wait_us": float(np.percentile(waits, 99)),
+        "cache_hit_rate": hits / max(1, hits + misses),
+        "passes_per_query": counters["batch_calls"] / len(log),
+        "counters": counters,
+    }
+    require(out["p99_wait_us"] <= deadline_us + 0.5,
+            f"9a: p99 wait {out['p99_wait_us']} us over {deadline_us} us")
+    require(counters["batch_traces"] == 0,
+            f"9a: {counters['batch_traces']} serve-time traces")
+    require(counters["tickets_resolved"] == len(log),
+            f"9a: {counters['tickets_resolved']} tickets resolved")
+    print(f"phase 9a deadline {deadline_us:.0f} us: {len(log)} queries every "
+          f"{gap_us:.0f} us (virtual), served {out['served_qps']:.1f} "
+          f"queries/s (virtual; wall {wall:.3f} s), bucket wall per "
+          f"virtual s {out['bucket_wall_per_virtual_s']:.4f}, p50/p99 wait "
+          f"{out['p50_wait_us']:.1f}/{out['p99_wait_us']:.1f} us over "
+          f"{len(queued)} queued, flushes tier {counters['tier_flushes']} "
+          f"deadline {counters['deadline_flushes']}, cache hit rate "
+          f"{out['cache_hit_rate']:.4f}, passes per query "
+          f"{out['passes_per_query']:.4f} ({counters['batch_calls']} passes, "
+          f"{counters['rerun_calls']} re-runs), serve-time traces "
+          f"{counters['batch_traces']}, violations "
+          f"{counters['deadline_violations']}")
+    return out
+
+
+def flusher_run(eng, log, want, qps: float, threads: int,
+                check: bool = True) -> dict:
+    """Phase 9b, one offered rate: ``threads`` submitter threads send the
+    log open loop at ``qps`` (arrival i at i / qps, each submit stamped with
+    its scheduled ``arrival_at``) to the background flusher; then stop() and
+    check every ticket."""
+    from repro_torch.core.engine import EXEC_COUNTERS
+
+    EXEC_COUNTERS.reset()
+    tickets = [None] * len(log)
+    gap = 1.0 / qps
+    eng.start()
+    start = time.perf_counter() + 0.01
+
+    def submitter(j: int) -> None:
+        for i in range(j, len(log), threads):
+            at = start + i * gap
+            delay = at - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            tickets[i] = eng.submit(log[i], arrival_at=at)
+
+    workers = [threading.Thread(target=submitter, args=(j,))
+               for j in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    require(not any(w.is_alive() for w in workers), "9b: submitters hung")
+    for t in tickets:
+        require(t.wait(timeout=120), "9b: a ticket never resolved")
+    end = max(t.resolved_at for t in tickets)
+    eng.stop()
+    counters = EXEC_COUNTERS.snapshot()
+    alive = [t for t in threading.enumerate()
+             if t.name == "repro-torch-flusher" and t.is_alive()]
+    require(not alive and not eng.running, "9b: a flusher thread survived")
+    require(counters["inflight_dispatches"] == counters["inflight_collects"],
+            "9b: dispatches and collects differ after the drain")
+    if check:
+        check_tickets(log, tickets, want, f"9b at {qps:.1f} queries/s")
+    waits = np.asarray([t.wait_us for t in tickets])
+    e2e = np.asarray([(t.resolved_at - t.submitted_at) * 1e6
+                      for t in tickets])
+    return {
+        "offered_qps": qps, "queries": len(log),
+        "served_qps": len(log) / (end - start), "wall_s": end - start,
+        "p50_wait_us": float(np.percentile(waits, 50)),
+        "p99_wait_us": float(np.percentile(waits, 99)),
+        "p50_e2e_us": float(np.percentile(e2e, 50)),
+        "p99_e2e_us": float(np.percentile(e2e, 99)),
+        "counters": counters,
+    }
+
+
+def plain_copy_collect(torch, bucket):
+    """The collect the port had before its copy stream: a blocking ``.cpu()``
+    of the first pass's outputs on the current stream, which waits for every
+    pass issued before the copy; the bucket's own collect then finishes."""
+    for h in bucket.pending.handles:
+        h.cpu()
+    return bucket.collect()
+
+
+def window_probe(torch, engine, log, device) -> dict:
+    """Phase 9d: dispatch a light bucket, then the heaviest first-pass
+    bucket (phase 5's), then collect the light one, with the side-stream
+    collect and with ``plain_copy_collect``, in turns (side, plain, side,
+    plain); and each bucket alone."""
+    from repro_torch.exec.batch import bucket_plans, dispatch_bucket
+
+    plans = [(i, p) for i, p in enumerate(map(engine.plan, log))
+             if p.algorithm == "device"]
+    buckets = bucket_plans(plans)
+
+    def weight(sig):
+        return len(buckets[sig]) * sig.k * (1 << sig.ts[-1])
+
+    heavy_sig, light_sig = max(buckets, key=weight), min(buckets, key=weight)
+    get_set = engine.device.sets.__getitem__
+
+    def dispatch(sig):
+        return dispatch_bucket(get_set, sig, buckets[sig], device=device)
+
+    def alone(sig):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = dispatch(sig)
+        b.pending.ready.synchronize()
+        t1 = time.perf_counter()
+        b.collect()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    out = {"light": {"ts": list(light_sig.ts), "B": len(buckets[light_sig])},
+           "heavy": {"ts": list(heavy_sig.ts), "B": len(buckets[heavy_sig])},
+           "runs": []}
+    alone(heavy_sig)  # first touch: allocator growth
+    out["heavy"]["ready_ms"], out["heavy"]["collect_ms"] = alone(heavy_sig)
+    out["light"]["ready_ms"], out["light"]["collect_ms"] = alone(light_sig)
+    for how in ("side stream", "plain .cpu()", "side stream", "plain .cpu()"):
+        torch.cuda.synchronize()
+        light = dispatch(light_sig)
+        t_heavy = time.perf_counter()
+        heavy = dispatch(heavy_sig)
+        t0 = time.perf_counter()
+        if how == "side stream":
+            light.collect()
+        else:
+            plain_copy_collect(torch, light)
+        t1 = time.perf_counter()
+        running = not heavy.is_ready()
+        heavy.pending.ready.synchronize()
+        t2 = time.perf_counter()
+        heavy.collect()
+        run = {"collect": how, "light_collect_ms": (t1 - t0) * 1e3,
+               "heavy_running_at_light_return": running,
+               "heavy_ready_ms": (t2 - t_heavy) * 1e3,
+               "heavy_dispatch_ms": (t0 - t_heavy) * 1e3}
+        out["runs"].append(run)
+        print(f"phase 9d {how}: light bucket (ts {light_sig.ts}, B "
+              f"{out['light']['B']}) collected in "
+              f"{run['light_collect_ms']:.3f} ms after the heavy bucket (ts "
+              f"{heavy_sig.ts}, B {out['heavy']['B']}) was dispatched "
+              f"({run['heavy_dispatch_ms']:.3f} ms of host dispatch); heavy "
+              f"still running when it returned: {running}; heavy ready "
+              f"{run['heavy_ready_ms']:.3f} ms after its dispatch began")
+    print(f"phase 9d alone: heavy bucket ready {out['heavy']['ready_ms']:.3f} "
+          f"ms after its dispatch began, its collect "
+          f"{out['heavy']['collect_ms']:.3f} ms; light bucket ready "
+          f"{out['light']['ready_ms']:.3f} ms, its collect "
+          f"{out['light']['collect_ms']:.3f} ms")
+    return out
+
+
+def run_online_front_end(torch, engine, postings, planted, main_log, report,
+                         device="cuda") -> dict:
+    """Phase 9 on phase 4's index: 9a the admission policy on a virtual
+    clock, 9b the background flusher on the wall clock, 9c adaptive
+    capacity, 9d the in-flight window on one card (on ``main_log``'s
+    buckets).  Returns each path's launches of the kernels: the counts are
+    set to 0 just before each of its runs and read just after it, so the
+    ``query_batch`` baseline and 9d count on no path here."""
+    from repro_torch.core.engine import EXEC_COUNTERS, pow2_tiers
+    from repro_torch.exec.adaptive import CapacityModel
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+    from repro_torch.serve.search import repeated_query_log
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    log = repeated_query_log(range(N_TERMS), ASYNC_QUERIES,
+                             n_distinct=ASYNC_DISTINCT, seed=SEED + 6)
+    log.insert(len(log) // 2, list(planted))
+    want = MemoOracle(postings)
+    out = {"queries": len(log), "distinct": len({tuple(q) for q in log}),
+           "s": {}}
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda}
+    paths = {}
+
+    def counted(path: str, run):
+        """``run()`` with every launch count set to 0 just before it; the
+        counts just after it are added to ``path``'s."""
+        for k in kernels.values():
+            k.launches = 0
+        result = run()
+        tally = paths.setdefault(path, dict.fromkeys(kernels, 0))
+        for name, k in kernels.items():
+            tally[name] += k.launches
+        return result
+
+    def done(part: str, since: float) -> float:
+        out["s"][part] = time.perf_counter() - since
+        print(f"phase {part}: {out['s'][part]:.1f} s")
+        return time.perf_counter()
+
+    # 9a: the policy on a virtual clock
+    t_part = t0 = time.perf_counter()
+    eng = async_engine(engine, device, flush_tier=ASYNC_FLUSH_TIER,
+                       result_cache=ASYNC_CACHE)
+    EXEC_COUNTERS.reset()
+    warmed = counted("AsyncSearchEngine.warm", lambda: eng.warm(
+        log, top_k=len(log), b_tiers=pow2_tiers(ASYNC_FLUSH_TIER)))
+    sync()
+    warm = EXEC_COUNTERS.snapshot()
+    print(f"phase 9a warm: {len(warmed)} signatures at tiers "
+          f"{pow2_tiers(ASYNC_FLUSH_TIER)}, {warm['warm_executions']} warm "
+          f"executions and {warm['warm_reruns']} at capacity G, "
+          f"{warm['batch_traces']} traces, launches "
+          f"{paths['AsyncSearchEngine.warm']}, "
+          f"{time.perf_counter() - t0:.1f} s with the mirrors")
+    out["9a"] = {"warm_s": time.perf_counter() - t0, "warm": warm,
+                 "runs": [counted("async 9a virtual clock",
+                                  lambda d=d: virtual_clock_run(
+                                      eng, log, want, d, ASYNC_FLUSH_TIER,
+                                      ASYNC_GAP_US))
+                          for d in ASYNC_DEADLINES_US]}
+    del eng
+    t_part = done("9a", t_part)
+
+    # 9b: the background flusher on the wall clock
+    flog = log[:FLUSHER_QUERIES]
+    eng = async_engine(engine, device, flush_tier=FLUSHER_TIER,
+                       deadline_us=FLUSHER_DEADLINE_US,
+                       max_inflight=FLUSHER_INFLIGHT, result_cache=0)
+    eng.query_batch(flog)  # allocator growth, before the timed pass
+    sync()
+    t0 = time.perf_counter()
+    eng.query_batch(flog)
+    sync()
+    base_qps = len(flog) / (time.perf_counter() - t0)
+    print(f"phase 9b query_batch on the {len(flog)}-query log: "
+          f"{base_qps:.1f} queries/s")
+    runs = []
+    for rate in FLUSHER_RATES:
+        run = counted("async 9b flusher", lambda: flusher_run(
+            eng, flog, want, rate * base_qps, FLUSHER_THREADS))
+        run["rate_of_query_batch"] = rate
+        runs.append(run)
+        c = run["counters"]
+        print(f"phase 9b at {rate}x ({run['offered_qps']:.1f} queries/s "
+              f"offered, {FLUSHER_THREADS} submitters): served "
+              f"{run['served_qps']:.1f} queries/s, p50/p99 wait "
+              f"{run['p50_wait_us']:.0f}/{run['p99_wait_us']:.0f} us, p50/p99 "
+              f"end to end {run['p50_e2e_us']:.0f}/{run['p99_e2e_us']:.0f} us, "
+              f"overlap high water {c['overlap_high_water']}, flusher wakeups "
+              f"{c['flusher_wakeups']}, flushes tier {c['tier_flushes']} "
+              f"deadline {c['deadline_flushes']}, collect_us "
+              f"{c['collect_us']}, dispatches/collects "
+              f"{c['inflight_dispatches']}/{c['inflight_collects']}, "
+              f"violations {c['deadline_violations']}")
+    prof = None
+    if device == "cuda":
+        plog = flog[:FLUSHER_PROFILED]
+        prof = profile_breakdown(torch, lambda: counted(
+            "async 9b flusher", lambda: flusher_run(
+                eng, plog, want, FLUSHER_RATES[-1] * base_qps,
+                FLUSHER_THREADS, check=False)))
+        print(f"phase 9b profiled run ({len(plog)} queries at "
+              f"{FLUSHER_RATES[-1]}x): wall {prof['wall_s']:.3f} s, device "
+              f"busy {prof['device_busy_ms']} ms, share "
+              f"{prof['device_busy_share']}")
+        for row in prof["top"][:6]:
+            print(f"  {row['ms']:10.3f} ms  {row['calls']:6d}x  "
+                  f"{row['name'][:90]}")
+    out["9b"] = {"query_batch_qps": base_qps, "runs": runs, "profile": prof}
+    del eng
+    t_part = done("9b", t_part)
+
+    # 9c: adaptive capacity on the card
+    model = CapacityModel(min_observations=4)
+    eng = async_engine(engine, device, result_cache=0,
+                       adaptive_capacity=model)
+    pair = list(planted)
+
+    def serve_pair():
+        ticket = eng.submit(pair)
+        eng.drain()
+        return ticket
+
+    steps = []
+    for _ in range(ADAPTIVE_REPEATS):
+        EXEC_COUNTERS.reset()
+        ticket = counted("async 9c adaptive", serve_pair)
+        require(ticket.done and ticket.error is None, "9c: ticket failed")
+        require(np.array_equal(ticket.value.doc_ids, want(pair)),
+                "9c: the planted pair disagrees with the oracle")
+        c = EXEC_COUNTERS.snapshot()
+        steps.append({"capacity": ticket.value.stats["capacity"],
+                      "reruns": c["rerun_calls"],
+                      "promotions": c["adaptive_promotions"],
+                      "saved": c["adaptive_overflow_saved"]})
+    promoted = [i for i, s in enumerate(steps) if s["promotions"]]
+    require(promoted, "9c: no promotion")
+    require(all(s["reruns"] == 0 for s in steps[promoted[0] + 1:]),
+            f"9c: a re-run after the promotion: {steps}")
+    print(f"phase 9c adaptive capacity: planted pair served "
+          f"{ADAPTIVE_REPEATS} times; capacity per serve "
+          f"{[s['capacity'] for s in steps]}, re-runs "
+          f"{[s['reruns'] for s in steps]}, promotion at serve "
+          f"{promoted[0] + 1}, saved re-runs "
+          f"{sum(s['saved'] for s in steps)}; learned tiers "
+          f"{list(model.learned_tiers().values())}")
+    out["9c"] = {"steps": steps, "learned": list(model.learned_tiers().values())}
+    del eng
+    t_part = done("9c", t_part)
+
+    # 9d: the window on one card
+    if device == "cuda":
+        out["9d"] = window_probe(torch, engine, main_log, device)
+        done("9d", t_part)
+    out["launches_by_path"] = paths
+    report["online"] = out
+    return paths
 
 
 def main(argv=None) -> int:
@@ -1180,7 +1690,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bf, gm = time_kernels(torch, engine, log, results, ref,
                           bitmap_filter_cuda, group_match_cuda)
-    del engine, results, postings
+    del results  # phase 9 serves the same index
     torch.cuda.empty_cache()
     t_phase = phase_done("5 times", t_phase)
 
@@ -1191,13 +1701,34 @@ def main(argv=None) -> int:
     t_phase = phase_done("6 pair_count", t_phase)
 
     # phase 7: the suggest slice
-    pc_launches, pc = run_suggest_slice(torch, ref, count_block_cuda, report)
+    pc_launches, pc_warm_launches, pc = run_suggest_slice(
+        torch, ref, count_block_cuda, report)
     launches["pair_count"] = pc_launches
     t_phase = phase_done("7 suggest", t_phase)
 
     # phase 8: a mix where the pre-filter drops candidates
-    run_small_sets(torch, count_block_cuda, report)
+    small_launches = run_small_sets(torch, count_block_cuda, report)
     t_phase = phase_done("8 small sets", t_phase)
+
+    # phase 9: the online front end on phase 4's index
+    async_launches = run_online_front_end(torch, engine, postings, planted,
+                                          log, report)
+    del engine, postings
+    torch.cuda.empty_cache()
+    t_phase = phase_done("9 online front end", t_phase)
+    paths = {
+        "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
+        "group_match": {"query_batch": launches["group_match"]},
+        "pair_count": {"suggest_batch": launches["pair_count"],
+                       "SuggestEngine.warm": pc_warm_launches,
+                       "suggest_batch small sets": small_launches},
+    }
+    for path, by_kernel in async_launches.items():
+        for name, n in by_kernel.items():
+            paths[name][path] = n
+    for name, by_path in paths.items():
+        require(all(n > 0 for n in by_path.values()),
+                f"{name} never launched on a path: {by_path}")
     kernels = [
         {"name": "bitmap_filter", "route": "cuda",
          "source": "src/repro_torch/csrc/bitmap_filter.cu",
@@ -1205,21 +1736,24 @@ def main(argv=None) -> int:
          "launches": launches["bitmap_filter"],
          "max_abs_err": max(bf_err, bf["max_abs_err"]),
          "ms": bf["ms"], "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
-         "bound_by": bf["bound_by"], "library_ms": None},
+         "bound_by": bf["bound_by"], "library_ms": None,
+         "launches_by_path": paths["bitmap_filter"]},
         {"name": "group_match", "route": "cuda",
          "source": "src/repro_torch/csrc/group_match.cu",
          "replaces": "src/repro/kernels/group_intersect.py:46",
          "launches": launches["group_match"],
          "max_abs_err": max(gm_err, gm["max_abs_err"]),
          "ms": gm["ms"], "plain_ms": gm["plain_ms"], "bound_ms": gm["bound_ms"],
-         "bound_by": gm["bound_by"], "library_ms": None},
+         "bound_by": gm["bound_by"], "library_ms": None,
+         "launches_by_path": paths["group_match"]},
         {"name": "pair_count", "route": "cuda",
          "source": "src/repro_torch/csrc/pair_count.cu",
          "replaces": "src/repro/kernels/count.py:70",
          "launches": launches["pair_count"],
          "max_abs_err": max(pc_err, pc["max_abs_err"]),
          "ms": pc["ms"], "plain_ms": pc["plain_ms"], "bound_ms": pc["bound_ms"],
-         "bound_by": pc["bound_by"], "library_ms": None},
+         "bound_by": pc["bound_by"], "library_ms": None,
+         "launches_by_path": paths["pair_count"]},
     ]
     report["kernels"] = kernels
     report["timed_shapes"] = {"bitmap_filter": bf, "group_match": gm,
@@ -1233,9 +1767,7 @@ def main(argv=None) -> int:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=2) + "\n")
 
-    print(f"kernels: bitmap_filter={launches['bitmap_filter']} "
-          f"group_match={launches['group_match']} "
-          f"pair_count={launches['pair_count']}")
+    print(f"kernels by path: {json.dumps(paths)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,24 @@ counters equal the JAX package's ``repro.core.engine`` on the same index.
 Dispatch is split from collection: :func:`dispatch_device_batch` enqueues
 the pass on the device's stream and returns a :class:`PendingBatch`, whose
 :meth:`~PendingBatch.collect` copies the results to the host, runs any
-overflow re-run and assembles the per-query answers.
+overflow re-run and assembles the per-query answers.  On the card the copy
+waits for its own pass only: the host waits on the pass's ``ready`` event,
+then copies on a side stream (one per device), so a collect never queues
+behind passes dispatched after its own, as ``jax.device_get`` of one
+bucket's buffers does not.
+
+Eager PyTorch compiles nothing per shape, so "trace" keeps the meaning a
+jit cache gives it: the first sighting in the process of a pass
+specialization (shape signature, capacity, pow2 B-tier), counted in
+``batch_traces`` / ``count_traces``.  :func:`warm_from_plans` runs each
+hot signature's representative at every B-tier before live traffic, which
+on the card also builds the kernel library and grows the caching
+allocator; serving what was warmed then counts no trace.  Warming is the
+one place the port differs from the JAX package on purpose: where a
+representative fits its capacity, :func:`warm_from_plans` also runs it at
+capacity G, the specialization an overflowing sibling's re-run needs
+(counted in ``warm_reruns``; the JAX package has no such pass, so there
+that sibling traces at serve time).
 
 The count-only suggestion path (:func:`dispatch_count_batch`) runs a bucket
 of (probe, candidates) rows as one pass: the (B, C) intersection counts
@@ -48,6 +65,7 @@ __all__ = [
     "EXEC_COUNTERS",
     "ExecCounters",
     "PendingBatch",
+    "clear_specializations",
     "default_capacity",
     "default_k_tier",
     "dispatch_count_batch",
@@ -56,7 +74,10 @@ __all__ = [
     "intersect_count_batch",
     "intersect_device",
     "intersect_device_batch",
+    "pow2_tiers",
     "set_sort_key",
+    "warm_executables",
+    "warm_from_plans",
 ]
 
 
@@ -68,27 +89,53 @@ class ExecCounters(dict):
 
     - ``batch_calls``  passes of the bucketed pipeline (first passes and
       overflow re-runs);
+    - ``batch_traces`` / ``count_traces``  first sightings in the process of
+      a point / count pass specialization (what a jit cache would compile;
+      see :func:`clear_specializations`);
     - ``rerun_calls``  overflow re-run passes (survivors > capacity);
     - ``inflight_dispatches`` / ``inflight_collects``  buckets dispatched
       through ``exec.batch.dispatch_bucket`` / torn down by their collect
       (equal after any drain);
     - ``collect_us``  cumulative microseconds in the blocking collect;
     - ``overlap_high_water``  most buckets in flight at once;
+    - ``warm_executions``  (representative, B-tier) passes run by
+      :func:`warm_executables` / :func:`warm_from_plans`, as in the JAX
+      package;
+    - ``warm_reruns``  the port's own: passes at capacity G that
+      :func:`warm_from_plans` adds for the re-run's specialization;
     - ``result_cache_hits`` / ``result_cache_misses``  result-cache lookups;
+    - ``tier_flushes`` / ``deadline_flushes``  admission-queue flushes by
+      cause (``serve/admission.py``);
+    - ``tickets_resolved`` / ``queue_wait_us`` / ``deadline_violations``
+      per-ticket wait telemetry stamped at resolution (one
+      :meth:`bump_many`, so a snapshot sees all three or none);
+    - ``flusher_wakeups``  background flusher wake-ups;
+    - ``adaptive_promotions`` / ``adaptive_demotions`` /
+      ``adaptive_overflow_saved``  learned capacity-tier moves and re-runs
+      a learned tier absorbed (``exec/adaptive.py``);
     - ``count_calls``  passes of the count-only suggest path;
     - ``suggest_prefilter_in`` / ``suggest_prefilter_kept``  candidates the
-      suggest pre-filter examined / kept.
+      suggest pre-filter examined / kept;
+    - ``dispatch_failures``  buckets whose dispatch or collect raised.
 
-    Writes and snapshots serialize on one lock; :meth:`bump` does the whole
-    read-modify-write under it.
+    Writes and snapshots serialize on one lock; :meth:`bump` /
+    :meth:`bump_many` do the whole read-modify-write under it.
     """
 
     _KEYS = (
-        "batch_calls", "rerun_calls",
+        "batch_calls", "batch_traces", "rerun_calls",
         "inflight_dispatches", "inflight_collects",
         "collect_us", "overlap_high_water",
+        "warm_executions", "warm_reruns",
         "result_cache_hits", "result_cache_misses",
-        "count_calls", "suggest_prefilter_in", "suggest_prefilter_kept",
+        "tier_flushes", "deadline_flushes",
+        "tickets_resolved", "queue_wait_us", "deadline_violations",
+        "flusher_wakeups",
+        "adaptive_promotions", "adaptive_demotions",
+        "adaptive_overflow_saved",
+        "count_calls", "count_traces",
+        "suggest_prefilter_in", "suggest_prefilter_kept",
+        "dispatch_failures",
     )
 
     def __init__(self):
@@ -104,6 +151,12 @@ class ExecCounters(dict):
         with self._lock:
             dict.__setitem__(self, key, dict.__getitem__(self, key) + n)
 
+    def bump_many(self, deltas: Dict[str, int]) -> None:
+        """Several increments at once: no snapshot sees a strict subset."""
+        with self._lock:
+            for key, n in deltas.items():
+                dict.__setitem__(self, key, dict.__getitem__(self, key) + n)
+
     def snapshot(self) -> dict:
         """A consistent copy of every counter."""
         with self._lock:
@@ -116,6 +169,88 @@ class ExecCounters(dict):
 
 
 EXEC_COUNTERS = ExecCounters()
+
+# pass specializations seen in this process, behind batch_traces /
+# count_traces; counter resets leave it alone, as they would a jit cache
+_seen_lock = threading.Lock()
+_seen_specs: set = set()
+
+
+def _batch_spec(dev: torch.device, ts: Tuple[int, ...],
+                gmaxes: Tuple[int, ...], m: int, w: int, cap: int,
+                n_rows: int) -> Tuple:
+    """The specialization a point pass of ``n_rows`` rows runs."""
+    return ("batch", str(dev), ts, gmaxes, m, w, cap, _b_tier(n_rows))
+
+
+def _seen_specialization(key: Tuple) -> bool:
+    with _seen_lock:
+        return key in _seen_specs
+
+
+def _note_specialization(counter: str, key: Tuple) -> None:
+    """Bump ``counter`` on the first sighting of ``key`` in the process."""
+    with _seen_lock:
+        if key in _seen_specs:
+            return
+        _seen_specs.add(key)
+    EXEC_COUNTERS.bump(counter)
+
+
+def clear_specializations() -> None:
+    """Forget every pass specialization seen so far (a test hook, like the
+    JAX package's ``clear_exec_jit_cache``): the next pass of each counts
+    a trace again."""
+    with _seen_lock:
+        _seen_specs.clear()
+
+
+def _b_tier(n: int) -> int:
+    """The pow2 batch tier a pass of ``n`` rows falls in."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+# one side stream per device for the collects' copies to the host
+_copy_lock = threading.Lock()
+_copy_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _copy_stream(dev: torch.device) -> "torch.cuda.Stream":
+    with _copy_lock:
+        stream = _copy_streams.get(dev)
+        if stream is None:
+            stream = _copy_streams[dev] = torch.cuda.Stream(device=dev)
+        return stream
+
+
+def _record_ready(dev: torch.device) -> Optional["torch.cuda.Event"]:
+    """An event after the work just issued on ``dev``'s current stream
+    (``None`` on the CPU, where that work already ran)."""
+    if dev.type != "cuda":
+        return None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(dev))
+    return ready
+
+
+def _to_host(tensors: Sequence[torch.Tensor],
+             ready: Optional["torch.cuda.Event"]) -> List[np.ndarray]:
+    """Copy one pass's outputs to the host, waiting for that pass only.
+
+    On the card the host first waits on ``ready``, then copies on the
+    device's side stream.  The side stream is shared by every collecting
+    thread, so nothing is queued on it before its pass has finished: a
+    copy there can queue behind another thread's copy, never behind a
+    pass.  The copies are blocking, so the source tensors stay referenced
+    until they are done.
+    """
+    if ready is None:
+        return [t.numpy() for t in tensors]
+    ready.synchronize()
+    stream = _copy_stream(tensors[0].device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)  # already met: orders the copy after it
+        return [t.cpu().numpy() for t in tensors]
 
 
 def gmax_tier(gmax: int) -> int:
@@ -270,20 +405,23 @@ class PendingBatch:
     """In-flight handle for one dispatched bucket pass.
 
     The pass is enqueued on the device's stream when dispatch returns;
-    ``ready`` is a CUDA event recorded after it (``None`` on the CPU, where
-    the pass ran synchronously).  :meth:`collect` copies the results to the
-    host, runs any overflow re-run and returns exactly what
+    ``handles`` are its output tensors and ``ready`` a CUDA event recorded
+    after it (``None`` on the CPU, where the pass ran synchronously).
+    :meth:`collect` copies the results to the host (waiting on ``ready``
+    only), runs any overflow re-run and returns exactly what
     :func:`intersect_device_batch` returns; it is memoized.
     """
 
     n_queries: int
-    ready: Optional[torch.cuda.Event] = None
+    handles: object = None
+    ready: Optional["torch.cuda.Event"] = None
     _collect: Optional[Callable[[], List[Tuple[np.ndarray, Dict]]]] = None
     _results: Optional[List[Tuple[np.ndarray, Dict]]] = None
 
     def is_ready(self) -> bool:
         """True when the first pass has finished on the device (a collect
-        would not wait for it; an overflow re-run can still add work)."""
+        would not wait for it; an overflow re-run can still add work).
+        Never blocks."""
         if self._results is not None or self.ready is None:
             return True
         return self.ready.query()
@@ -294,6 +432,7 @@ class PendingBatch:
         if self._results is None:
             self._results = self._collect()
             self._collect = None  # drop the captured device tensors
+            self.handles = None
             self.ready = None
         return self._results
 
@@ -309,11 +448,12 @@ def dispatch_device_batch(
     share the shape signature ``(ts, gmaxes)`` after the (t, n)-sort (the
     exec layer's bucketing guarantees it).  ``batch_calls`` is bumped per
     pass (the first here, a re-run inside collect), ``rerun_calls`` per
-    overflow pass.
+    overflow pass, ``batch_traces`` per first sighting of a pass's
+    (signature, capacity, pow2 B-tier).
 
     The batch runs at its own size B.  (The JAX package pads B to a power of
     two to bound XLA's compile cache; eager PyTorch compiles nothing per
-    shape, so there is nothing to bound.)
+    shape, so only the trace count keeps the tier.)
     """
     dev = resolve_device(device)
     if not len(queries):
@@ -327,17 +467,16 @@ def dispatch_device_batch(
             if s.device != dev:
                 raise ValueError(f"set on {s.device}, bucket runs on {dev}")
     G = 1 << ts[-1]
+    m, w = ordered[0][0].m, ordered[0][0].w
 
     def issue(active: List[int], cap: int):
         vals = [[ordered[i][j].vals for i in active] for j in range(len(ts))]
         images = [[ordered[i][j].images for i in active] for j in range(len(ts))]
         EXEC_COUNTERS.bump("batch_calls")
+        _note_specialization("batch_traces", _batch_spec(
+            dev, ts, gmaxes, m, w, cap, len(active)))
         handles = _intersect_k_batch(vals, images, ts, cap)
-        ready = None
-        if dev.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(dev))
-        return handles, ready
+        return handles, _record_ready(dev)
 
     first_active = list(range(len(ordered)))
     first_cap = capacity or default_capacity(ts)
@@ -345,9 +484,10 @@ def dispatch_device_batch(
 
     def collect() -> List[Tuple[np.ndarray, Dict]]:
         results: List[Optional[Tuple[np.ndarray, Dict]]] = [None] * len(ordered)
-        active, cap, handles = first_active, first_cap, first_handles
+        active, cap = first_active, first_cap
+        handles, ready = first_handles, first_ready
         while True:
-            packed_h, r_h, n_surv_h, over_h = (h.cpu().numpy() for h in handles)
+            packed_h, r_h, n_surv_h, over_h = _to_host(handles, ready)
             rerun = []
             for row, qi in enumerate(active):
                 if over_h[row]:
@@ -370,10 +510,10 @@ def dispatch_device_batch(
             active = rerun
             cap = G  # rare path: ONE re-run of the overflow subset at G
             EXEC_COUNTERS.bump("rerun_calls")
-            handles, _ = issue(active, cap)
+            handles, ready = issue(active, cap)  # the collecting thread's stream
 
-    return PendingBatch(n_queries=len(ordered), ready=first_ready,
-                        _collect=collect)
+    return PendingBatch(n_queries=len(ordered), handles=first_handles,
+                        ready=first_ready, _collect=collect)
 
 
 def intersect_device_batch(
@@ -473,10 +613,10 @@ def _intersect_count_batch(table: CountTable, k_sel: int) -> torch.Tensor:
     return _top_k_slots(torch.where(table.real, counts, -1), k_sel)
 
 
-def _collect_count(pairs: torch.Tensor, queries, k_sel: int,
+def _collect_count(pairs: torch.Tensor, ready, queries, k_sel: int,
                    extra_stats: Dict) -> List[Tuple[np.ndarray, Dict]]:
     """One copy of the (B, k_sel, 2) pairs to the host, split per row."""
-    fetched = pairs.cpu().numpy()
+    fetched, = _to_host([pairs], ready)
     return [
         (fetched[row], {"n_cands": len(cands), "k_sel": k_sel,
                         "batch_size": len(queries), **extra_stats})
@@ -495,7 +635,8 @@ def dispatch_count_batch(
     ascending id by the caller (the tie-break contract), all on
     ``device``.  ``k`` is the selection tier (``ShapeSig.capacity_tier``
     for planned buckets); each row gets its top ``min(k, c_tier)`` (slot,
-    count) pairs.  One pass per bucket, counted in ``count_calls``; the
+    count) pairs.  One pass per bucket, counted in ``count_calls``
+    (``count_traces`` per first sighting of its specialization); the
     count path has no overflow re-run.  The batch runs at its own size B
     (the JAX package's pow2 B padding only bounded XLA's compile cache).
     """
@@ -509,17 +650,17 @@ def dispatch_count_batch(
     k_sel = min(int(k), c_tier)
     table = _pack_count_rows(queries, c_tier)
     EXEC_COUNTERS.bump("count_calls")
+    gmaxes = (queries[0][0].gmax, queries[0][1][0].gmax)
+    _note_specialization("count_traces", (
+        "count", str(dev), ts, gmaxes, c_tier, k_sel, _b_tier(len(queries))))
     pairs = _intersect_count_batch(table, k_sel)
-    ready = None
-    if dev.type == "cuda":
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(dev))
+    ready = _record_ready(dev)
     extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts)}
     # the captured ``queries`` hold every mirror the table names until the
     # collect's copy has waited for the pass
     return PendingBatch(
-        n_queries=len(queries), ready=ready,
-        _collect=lambda: _collect_count(pairs, queries, k_sel, extra))
+        n_queries=len(queries), handles=pairs, ready=ready,
+        _collect=lambda: _collect_count(pairs, ready, queries, k_sel, extra))
 
 
 def intersect_count_batch(
@@ -533,6 +674,97 @@ def intersect_count_batch(
     ``c_tier``, ``group_tuples``).  Padding slots carry count -1; the
     serving layer drops counts < 1."""
     return dispatch_count_batch(queries, k, device=device).collect()
+
+
+def pow2_tiers(up_to: int) -> Tuple[int, ...]:
+    """All power-of-two batch tiers ``(1, 2, 4, ..., up_to)``: warming
+    these covers every partial-flush size in ``[1, up_to]``."""
+    if up_to < 1 or up_to & (up_to - 1):
+        raise ValueError("up_to must be a power of two")
+    return tuple(1 << i for i in range(up_to.bit_length()))
+
+
+def warm_executables(
+    representatives: Sequence[Sequence[DeviceSet]],
+    b_tiers: Sequence[int] = (1,),
+    capacity: Optional[int] = None,
+    device: Device = "cuda",
+) -> int:
+    """Run one query row per shape signature at every batch tier, so the
+    first live bucket of up to ``b`` queries meets a specialization already
+    seen (tier ``b`` covers live buckets of size in ``(b/2, b]``).  On the
+    card this also builds the kernel library and grows the caching
+    allocator before live traffic.  Results are discarded.  Bumps
+    ``warm_executions`` once per (row, tier) and returns that count."""
+    issued = 0
+    for row in representatives:
+        for b in b_tiers:
+            if b < 1 or b & (b - 1):
+                raise ValueError("b_tiers must be powers of two")
+            intersect_device_batch([list(row)] * b, capacity=capacity,
+                                   device=device)
+            EXEC_COUNTERS.bump("warm_executions")
+            issued += 1
+    return issued
+
+
+def _warm_rerun(row: Sequence[DeviceSet], capacity: Optional[int],
+                b_tiers: Sequence[int], device: Device) -> None:
+    """Run ``row`` at capacity G at each tier of ``b_tiers`` whose re-run
+    specialization is still unseen, bumping ``warm_reruns`` per pass.
+
+    A live bucket re-runs its overflowing queries at capacity G.  When the
+    representative fitted its capacity, warming did not run that re-run,
+    so a sibling of its signature that overflows would meet it unseen.
+    (The JAX package's warming stops before this pass.)"""
+    dev = resolve_device(device)
+    ordered = sorted(row, key=set_sort_key)
+    ts, gmaxes = _signature(ordered)
+    G = 1 << ts[-1]
+    if (capacity or default_capacity(ts)) >= G:
+        return  # no re-run: the first pass already holds every group
+    for b in b_tiers:
+        if _seen_specialization(_batch_spec(dev, ts, gmaxes, ordered[0].m,
+                                            ordered[0].w, G, b)):
+            continue
+        intersect_device_batch([list(row)] * b, capacity=G, device=device)
+        EXEC_COUNTERS.bump("warm_reruns")
+
+
+def warm_from_plans(plans, get_set: Callable[[object], DeviceSet],
+                    top_k: int = 8, b_tiers: Sequence[int] = (1,),
+                    device: Device = "cuda") -> List:
+    """The warming policy over planned queries: count the device-routed
+    shape signatures of ``plans`` (``exec.plan.QueryPlan``s), take the
+    ``top_k`` most frequent, and run the first plan of each at every tier
+    of ``b_tiers``, at the signature's own capacity tier (a learned one
+    under an adaptive model), then at capacity G where that re-run's
+    specialization is still unseen (:func:`_warm_rerun`, the port's
+    addition).  Count signatures (``sig.cands > 0``) run the count pass at
+    their top-K tier.  ``get_set`` maps a planned term to its DeviceSet.
+    Returns the warmed signatures, most frequent first."""
+    from collections import Counter
+
+    freq = Counter(p.sig for p in plans if p.algorithm == "device")
+    rep_terms: Dict = {}
+    for p in plans:
+        if p.algorithm == "device" and p.sig not in rep_terms:
+            rep_terms[p.sig] = p.terms
+    warmed = [sig for sig, _ in freq.most_common(top_k)]
+    for sig in warmed:
+        terms = rep_terms[sig]
+        if sig.cands > 0:
+            row = (get_set(terms[0]), [get_set(t) for t in terms[1:]])
+            for b in b_tiers:
+                intersect_count_batch([row] * b, sig.capacity_tier,
+                                      device=device)
+                EXEC_COUNTERS.bump("warm_executions")
+        else:
+            row = [get_set(t) for t in terms]
+            warm_executables([row], b_tiers=b_tiers,
+                             capacity=sig.capacity_tier, device=device)
+            _warm_rerun(row, sig.capacity_tier, b_tiers, device)
+    return warmed
 
 
 class BatchedEngine:

@@ -14,20 +14,25 @@ bucket's dispatch-to-collect wall time divided by bucket size).
 Dispatch is split from collection: :func:`dispatch_bucket` enqueues the
 bucket's first pass and returns an :class:`InFlightBucket` whose
 :meth:`~InFlightBucket.collect` blocks for the results;
-:func:`execute_plan_buckets` enqueues a few buckets ahead of the one it
-collects.  (Every bucket runs on one stream, so a collect's copy also
-waits for the buckets dispatched after its own; what the window gains on
-the card is not measured yet.)  ``EXEC_COUNTERS`` tracks it:
-``inflight_dispatches`` per dispatched bucket, ``inflight_collects`` per
-one-shot teardown (equal after a drain), ``overlap_high_water`` (most
-buckets in flight at once) and ``collect_us`` (blocking collect time).
+:func:`execute_plan_buckets` enqueues up to ``max_inflight`` buckets ahead
+of the one it collects.  Every bucket runs on the compute stream, but a
+collect's copy waits only on its own bucket's event (from a side stream),
+so it does not queue behind the buckets dispatched after it.  With a
+``capacity_model`` attached, collect feeds each bucket's survivor counts
+to it.  ``EXEC_COUNTERS`` tracks the window: ``inflight_dispatches`` per
+dispatched bucket, ``inflight_collects`` per one-shot teardown (equal
+after a drain), ``overlap_high_water`` (most buckets in flight at once),
+``collect_us`` (blocking collect time) and ``dispatch_failures`` (buckets
+whose dispatch or collect raised).
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import defaultdict
-from typing import Callable, Dict, Iterable, List, Mapping, Sequence, Tuple
+from typing import (
+    Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 
@@ -46,11 +51,6 @@ __all__ = [
     "execute_plan_buckets",
     "execute_name_queries",
 ]
-
-# buckets execute_plan_buckets dispatches ahead of their collection; fixed
-# until a caller needs another window (the JAX package's async front end
-# takes it as an option)
-_MAX_INFLIGHT = 4
 
 # process-wide in-flight gauge behind overlap_high_water: dispatch_bucket
 # increments, InFlightBucket teardown decrements
@@ -91,39 +91,48 @@ class InFlightBucket:
     Holds the pipeline's :class:`~repro_torch.core.engine.PendingBatch` and
     the bucket bookkeeping; :meth:`collect` finishes the job.  Collect is
     memoized; the in-flight teardown happens exactly once, also when
-    collect raises.
+    collect raises.  ``is_ready()`` is safe to poll from any thread.
     """
 
     def __init__(self, sig: ShapeSig, items: Sequence[Tuple[int, QueryPlan]],
-                 pending: PendingBatch, dispatched_at: float):
+                 pending: PendingBatch, dispatched_at: float,
+                 capacity_model=None):
         self.sig = sig
         self.items = list(items)
         self.pending = pending
         self.dispatched_at = dispatched_at
-        self._out = None
+        self.dispatch_end_at = time.perf_counter()
+        self.capacity_model = capacity_model
+        self._out: Optional[Dict[int, Tuple[np.ndarray, Dict]]] = None
         self._finished = False
 
     def is_ready(self) -> bool:
         """Non-blocking peek: True when the first pass has finished."""
         return self.pending.is_ready()
 
-    def _finish(self) -> None:
+    def _finish(self, failed: bool = False) -> None:
+        """One-shot teardown on the first collect completion or failure;
+        ``failed`` also counts a ``dispatch_failures``."""
         if self._finished:
             return
         self._finished = True
-        EXEC_COUNTERS.bump("inflight_collects")
+        EXEC_COUNTERS.bump_many({"inflight_collects": 1,
+                                 "dispatch_failures": int(failed)})
         _inflight_exit()
 
     def collect(self) -> Dict[int, Tuple[np.ndarray, Dict]]:
         """Block for the bucket's results: {query_index: (values, stats)}.
-        Stamps ``batch_us`` and adds the blocking time to ``collect_us``."""
+        Stamps ``batch_us``, adds the blocking time to ``collect_us`` and
+        feeds the capacity model."""
         if self._out is not None:
             return self._out
         c0 = time.perf_counter()
         try:
             results = self.pending.collect()
-        finally:
-            self._finish()
+        except BaseException:
+            self._finish(failed=True)
+            raise
+        self._finish()
         c1 = time.perf_counter()
         EXEC_COUNTERS.bump("collect_us", int((c1 - c0) * 1e6))
         us = (c1 - self.dispatched_at) * 1e6
@@ -131,6 +140,9 @@ class InFlightBucket:
         for (qi, _), (values, stats) in zip(self.items, results):
             stats["batch_us"] = us / len(self.items)
             out[qi] = (values, stats)
+        if self.capacity_model is not None:
+            self.capacity_model.observe_bucket(
+                self.sig, [stats for _, stats in out.values()])
         self._out = out
         return out
 
@@ -140,25 +152,34 @@ def dispatch_bucket(
     sig: ShapeSig,
     items: Sequence[Tuple[int, QueryPlan]],
     device: Device = "cuda",
+    capacity_model=None,
 ) -> InFlightBucket:
     """Enqueue ONE same-signature bucket without blocking; ``get_set``
     resolves a planned term to its DeviceSet.  Bumps
     ``inflight_dispatches``; the pipeline bumps ``batch_calls`` (a suggest
-    bucket's count pass bumps ``count_calls``)."""
+    bucket's count pass bumps ``count_calls``).  A dispatch that raises
+    bumps ``dispatch_failures``.  ``capacity_model`` is fed at collect."""
     t0 = time.perf_counter()
-    if sig.cands > 0:
-        # plan.terms is (probe, *candidates), candidates ascending: the
-        # order the count pass's tie-break reads as "smallest id first"
-        rows = [(get_set(plan.terms[0]), [get_set(t) for t in plan.terms[1:]])
-                for _, plan in items]
-        pending = dispatch_count_batch(rows, sig.capacity_tier, device=device)
-    else:
-        rows = [[get_set(t) for t in plan.terms] for _, plan in items]
-        pending = dispatch_device_batch(rows, capacity=sig.capacity_tier,
-                                        device=device)
+    try:
+        if sig.cands > 0:
+            # plan.terms is (probe, *candidates), candidates ascending: the
+            # order the count pass's tie-break reads as "smallest id first"
+            rows = [(get_set(plan.terms[0]),
+                     [get_set(t) for t in plan.terms[1:]])
+                    for _, plan in items]
+            pending = dispatch_count_batch(rows, sig.capacity_tier,
+                                           device=device)
+        else:
+            rows = [[get_set(t) for t in plan.terms] for _, plan in items]
+            pending = dispatch_device_batch(rows, capacity=sig.capacity_tier,
+                                            device=device)
+    except BaseException:
+        EXEC_COUNTERS.bump("dispatch_failures")
+        raise
     EXEC_COUNTERS.bump("inflight_dispatches")
     _inflight_enter()
-    return InFlightBucket(sig, items, pending, t0)
+    return InFlightBucket(sig, items, pending, t0,
+                          capacity_model=capacity_model)
 
 
 def execute_bucket(
@@ -166,29 +187,34 @@ def execute_bucket(
     sig: ShapeSig,
     items: Sequence[Tuple[int, QueryPlan]],
     device: Device = "cuda",
+    capacity_model=None,
 ) -> Dict[int, Tuple[np.ndarray, Dict]]:
     """Execute ONE same-signature bucket: {query_index: (values, stats)}.
     The synchronous composition of :func:`dispatch_bucket` and
     :meth:`InFlightBucket.collect`."""
-    return dispatch_bucket(get_set, sig, items, device=device).collect()
+    return dispatch_bucket(get_set, sig, items, device=device,
+                           capacity_model=capacity_model).collect()
 
 
 def execute_plan_buckets(
     get_set: Callable[[object], DeviceSet],
     indexed_plans: Iterable[Tuple[int, QueryPlan]],
     device: Device = "cuda",
+    capacity_model=None,
+    max_inflight: int = 4,
 ) -> Dict[int, Tuple[np.ndarray, Dict]]:
     """Execute device plans bucket by bucket: {query_index: (values, stats)}.
 
     One pass per distinct signature (plus rare overflow re-runs), with up to
-    ``_MAX_INFLIGHT`` buckets dispatched ahead of their collection.  All
+    ``max_inflight`` buckets dispatched ahead of their collection.  All
     results are collected before returning.
     """
     out: Dict[int, Tuple[np.ndarray, Dict]] = {}
     window: List[InFlightBucket] = []
     for sig, items in bucket_plans(indexed_plans).items():
-        window.append(dispatch_bucket(get_set, sig, items, device=device))
-        if len(window) >= _MAX_INFLIGHT:
+        window.append(dispatch_bucket(get_set, sig, items, device=device,
+                                      capacity_model=capacity_model))
+        if len(window) >= max(1, max_inflight):
             out.update(window.pop(0).collect())
     for bucket in window:
         out.update(bucket.collect())

@@ -85,7 +85,13 @@ class ResultCache:
             self.generation += 1
 
     def invalidate(self) -> None:
-        """Drop everything now and advance the generation."""
+        """Drop everything now and advance the generation (also fired on
+        adaptive capacity-tier changes)."""
         with self._lock:
             self.generation += 1
+            self._entries.clear()
+
+    def clear(self) -> None:
+        """Drop every entry; the generation stays."""
+        with self._lock:
             self._entries.clear()

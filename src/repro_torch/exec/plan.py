@@ -29,6 +29,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 from ..core.engine import (
     default_capacity, default_k_tier, gmax_tier, set_sort_key,
 )
+from .adaptive import adaptive_key_parts
 
 __all__ = ["ShapeSig", "QueryPlan", "plan_query", "plan_suggest"]
 
@@ -76,18 +77,27 @@ class QueryPlan:
             return ("suggest", (self.terms, self.sig.capacity_tier))
         return (self.algorithm, self.terms)
 
+    def query_spec(self):
+        """What to re-plan to reproduce this plan: the flat term list.  The
+        async flusher re-plans it at dispatch to find plans an index
+        mutation made stale."""
+        return list(self.terms)
+
 
 def plan_query(
     index: Mapping,
     terms: Sequence,
     hashbin_ratio: float = 100.0,
+    capacity_model=None,
 ) -> QueryPlan:
     """Plan one query against ``index`` (term -> set with .t/.gmax/.n).
 
     Pure metadata work: touches no arrays and runs no device code.  For
     device-routed plans ``sig.gmaxes`` are power-of-two tiers and
     ``sig.capacity_tier`` is ``default_capacity(ts)``, the static shapes
-    the executor will stack.
+    the executor will stack; with a ``capacity_model``
+    (``exec.adaptive.CapacityModel``) it is the model's learned tier for
+    the signature's adaptive key, the static rule while the key is cold.
     """
     uniq = []
     seen = set()
@@ -105,11 +115,12 @@ def plan_query(
     if len(uniq) == 2 and max(ns) / max(1, min(ns)) > hashbin_ratio:
         return QueryPlan(terms=tuple(uniq), algorithm="hashbin")
     ts = tuple(index[t].t for t in uniq)
-    sig = ShapeSig(
-        k=len(uniq), ts=ts,
-        gmaxes=tuple(gmax_tier(index[t].gmax) for t in uniq),
-        capacity_tier=default_capacity(ts),
-    )
+    gmaxes = tuple(gmax_tier(index[t].gmax) for t in uniq)
+    capacity = default_capacity(ts)
+    if capacity_model is not None:
+        capacity = capacity_model.capacity_for(
+            adaptive_key_parts(len(uniq), ts, gmaxes, 1), capacity)
+    sig = ShapeSig(k=len(uniq), ts=ts, gmaxes=gmaxes, capacity_tier=capacity)
     return QueryPlan(terms=tuple(uniq), algorithm="device", sig=sig)
 
 

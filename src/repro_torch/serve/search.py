@@ -10,7 +10,16 @@ results **scattered** back in request order.  Single-query ``query`` is a
 batch of one.
 
 An optional LRU result cache keyed on the normalized plan answers repeated
-conjunctions without touching the device.
+conjunctions without touching the device, and :meth:`SearchEngine.warm`
+runs the hot shape signatures of a sample workload before live traffic.
+
+Two front ends share that pipeline: :class:`SearchEngine`, synchronous (the
+caller hands over a batch and blocks for it), and
+:class:`AsyncSearchEngine`, online (callers ``submit`` single queries; an
+admission queue gathers them into per-signature micro-batches and flushes
+a bucket when it fills a power-of-two tier or its oldest query's deadline
+budget expires, with up to ``max_inflight`` buckets dispatched before the
+oldest is collected).
 
 :class:`SuggestEngine` serves the count-only top-K suggestion path over a
 corpus of sets on the same substrate: a host pre-filter, one plan per
@@ -18,23 +27,31 @@ candidate shape class, the bucketed count passes, a host merge.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from ..core.engine import BatchedEngine, gmax_tier
+from ..core.engine import (
+    EXEC_COUNTERS, BatchedEngine, gmax_tier, pow2_tiers, warm_from_plans,
+)
 from ..core.hashing import default_permutation, random_hash_family
 from ..core.intersect import hashbin
 from ..core.partition import preprocess_prefix
 from ..device import Device
-from ..exec.batch import execute_plan_buckets
+from ..exec.adaptive import AdaptiveDeadline, CapacityModel, adaptive_key
+from ..exec.batch import InFlightBucket, dispatch_bucket, execute_plan_buckets
 from ..exec.cache import ResultCache
 from ..exec.candidates import CandidateIndex
-from ..exec.plan import QueryPlan, plan_query, plan_suggest
+from ..exec.plan import QueryPlan, ShapeSig, plan_query, plan_suggest
+from .admission import AdmissionQueue, Ticket
 
-__all__ = ["QueryResult", "SearchEngine", "SuggestEngine", "SuggestResult",
+__all__ = ["AsyncSearchEngine", "QueryResult", "SearchEngine",
+           "SuggestEngine", "SuggestResult", "repeated_query_log",
            "zipf_query_log"]
 
 
@@ -64,12 +81,17 @@ class SearchEngine:
     of every posting list and runs the device path.  ``result_cache``
     (entries; 0 disables) adds the LRU result cache; it registers itself on
     the device engine's mutation hook, so :meth:`add_postings` can never
-    serve stale cached results.
+    serve stale cached results.  ``adaptive_capacity`` (True for the
+    default model, or a :class:`~repro_torch.exec.adaptive.CapacityModel`)
+    sizes survivor buffers from observed survivor counts instead of the
+    static G/4 rule: the planner consults the model, the executor feeds it,
+    and a tier change invalidates the result cache and re-warms the new
+    specialization.
     """
 
     def __init__(self, postings: Dict[int, np.ndarray], w: int = 256,
                  m: int = 2, seed: int = 0, hashbin_ratio: float = 100.0,
-                 result_cache: int = 0,
+                 result_cache: int = 0, adaptive_capacity=False,
                  device: Device = "cuda"):
         self.family = random_hash_family(m, w, seed=seed)
         self.perm = default_permutation(seed)
@@ -89,10 +111,67 @@ class SearchEngine:
         # build-time adds are done; from here on every index mutation
         # stales the result cache
         self.device.on_mutate(self.cache.bump_generation)
+        if isinstance(adaptive_capacity, CapacityModel):
+            self.capacity_model: Optional[CapacityModel] = adaptive_capacity
+        else:
+            self.capacity_model = CapacityModel() if adaptive_capacity else None
+        if self.capacity_model is not None:
+            self.capacity_model.on_promotion(self._on_tier_promotion)
+        self.warmed_sigs: List[ShapeSig] = []
+        # adaptive key -> (representative query, warmed b_tiers): what a
+        # tier change re-warms
+        self._warm_reps: Dict[Tuple, Tuple] = {}
 
     def plan(self, terms) -> QueryPlan:
-        """Normalize and route one query (dedup, §3.4 policy, shape sig)."""
-        return plan_query(self.index, terms, hashbin_ratio=self.hashbin_ratio)
+        """Normalize and route one query (dedup, §3.4 policy, shape sig,
+        learned capacity tier when an adaptive model is attached)."""
+        return plan_query(self.index, terms, hashbin_ratio=self.hashbin_ratio,
+                          capacity_model=self.capacity_model)
+
+    def _on_tier_promotion(self, key, old_tier: int, new_tier: int) -> None:
+        """Capacity-tier change hook (fired by the CapacityModel, for
+        promotions and demotions alike).  Invalidates the result cache (an
+        in-flight result captured against the old generation must not
+        re-enter) and, when the signature was warmed, re-runs its
+        representative at the warmed tiers, so the new specialization is
+        seen here and not at the next live flush."""
+        self.cache.invalidate()
+        rep = self._warm_reps.get(key)
+        if rep is None:
+            return
+        spec, b_tiers = rep
+        plan = self.plan(spec)  # re-plans at the new tier
+        if plan.algorithm != "device":
+            return
+        warm_from_plans([plan], self.device.sets.__getitem__, top_k=1,
+                        b_tiers=b_tiers, device=self.device.device)
+        if plan.sig not in self.warmed_sigs:
+            self.warmed_sigs.append(plan.sig)
+
+    def warm(self, sample_queries: Sequence[Sequence[int]], top_k: int = 8,
+             b_tiers: Sequence[int] = (1,)) -> List[ShapeSig]:
+        """Run the hot shape signatures of a sample workload before live
+        traffic: plans ``sample_queries``, and runs one representative of
+        each of the ``top_k`` most frequent device signatures at every
+        batch tier in ``b_tiers`` (``core.engine.warm_from_plans``; tier
+        ``b`` covers live buckets of size in ``(b/2, b]``).  Live buckets on
+        a warmed signature then count no ``batch_traces``.  Returns the
+        warmed signatures, most frequent first, also kept on
+        ``warmed_sigs``."""
+        plans = [self.plan(q) for q in sample_queries]
+        self.warmed_sigs = warm_from_plans(
+            plans, self.device.sets.__getitem__, top_k=top_k,
+            b_tiers=b_tiers, device=self.device.device)
+        # one representative per warmed signature, for re-warming after an
+        # adaptive tier change
+        warmed_keys = {adaptive_key(sig) for sig in self.warmed_sigs}
+        for p in plans:
+            if p.algorithm != "device":
+                continue
+            key = adaptive_key(p.sig)
+            if key in warmed_keys and key not in self._warm_reps:
+                self._warm_reps[key] = (p.query_spec(), tuple(b_tiers))
+        return self.warmed_sigs
 
     def add_postings(self, term: int, postings: np.ndarray) -> None:
         """Add or replace one term's posting list after build: re-runs
@@ -160,8 +239,9 @@ class SearchEngine:
                 self._store(plan, results[i], generation=gen)
         if device_plans:
             by_index = execute_plan_buckets(
-                lambda term: self.device.sets[term], device_plans,
-                device=self.device.device)
+                self.device.sets.__getitem__, device_plans,
+                device=self.device.device,
+                capacity_model=self.capacity_model)
             for i, plan in device_plans:
                 res, stats = by_index[i]
                 # the port's one device path: single device, flat conjunctions
@@ -179,6 +259,405 @@ class SearchEngine:
             return
         self.cache.put(plan, (result.doc_ids, result.algorithm),
                        generation=generation)
+
+
+@dataclasses.dataclass
+class _Flight:
+    """One dispatched-but-uncollected bucket in the serving window: the
+    executor's :class:`~repro_torch.exec.batch.InFlightBucket`, the live
+    (ticket, plan) entries in bucket-row order, the flush time (``wait_us``
+    runs from submit to flush start, what the deadline budget bounds) and
+    the result-cache generation captured before dispatch."""
+
+    bucket: InFlightBucket
+    entries: List[Tuple[Ticket, QueryPlan]]
+    flush_at: float
+    generation: int
+
+
+class AsyncSearchEngine(SearchEngine):
+    """Online front end: single-query admission, deadline-bounded flushing.
+
+    Callers :meth:`submit` one query at a time and get a
+    :class:`~repro_torch.serve.admission.Ticket` back at once.
+    Device-routed plans gather in an :class:`~repro_torch.serve.admission.
+    AdmissionQueue` keyed by shape signature; a bucket runs when it fills
+    the power-of-two ``flush_tier`` or its earliest ``deadline_us`` budget
+    expires.  Host-routed, empty and cache-hit queries resolve inside
+    ``submit``.
+
+    Two ways to flush:
+
+    - **Manual** (default): the caller calls :meth:`pump` on a timer;
+      full-tier buckets also flush inline at submit time
+      (``inline_tier_flush``; a virtual-time caller that owns flush timing
+      sets it False).
+    - **Background flusher** (:meth:`start` / :meth:`stop`, or ``with
+      engine:``): a daemon thread sleeps until the next deadline, is woken
+      by every device-routed submit, and pumps; ``submit`` then only
+      queues.  Each wake-up bumps ``flusher_wakeups``.  It sleeps in real
+      time, so it assumes the engine ``clock`` is wall time.
+
+    Flushing is split into *dispatch* (the bucket's pass is enqueued on
+    the device, under one execution lock) and *collect* (the copy to the
+    host, any overflow re-run and ticket resolution, outside it), so up to
+    ``max_inflight`` buckets (default 8) are on the device at once;
+    ``overlap_high_water`` records the overlap reached.  On the card each
+    collect waits for its own bucket only (``core.engine``'s copy stream).
+    With flights outstanding the flusher waits on the oldest one's
+    collection, not on a timer.  The flusher thread runs under the
+    engine's CUDA device, since the current device is per thread.
+
+    Thread-safety: many threads may ``submit`` beside the flusher or manual
+    ``pump`` / ``drain`` callers.  ``submit`` takes no engine-wide lock.
+    The queue's atomic bucket pops dispatch each ticket exactly once and
+    the flight list's atomic pops collect each bucket exactly once, so
+    ``drain`` is idempotent and safe while the flusher runs.  The inherited
+    synchronous paths (``query`` / ``query_batch`` / ``warm``) are
+    single-caller: do not interleave them with concurrent submits.
+
+    ``adaptive_capacity`` (inherited) learns capacity tiers;
+    ``adaptive_deadline`` (True, or an :class:`~repro_torch.exec.adaptive.
+    AdaptiveDeadline`) shrinks a signature's flush budget when its arrival
+    rate cannot fill a bucket within the default; an explicit per-query
+    ``deadline_us`` always wins.  ``warm_queries`` warms their hot
+    signatures at construction, at ``warm_b_tiers`` (default every pow2
+    tier up to ``flush_tier``, so no partial flush meets an unseen
+    specialization).  The result cache defaults on (1024 entries).
+    """
+
+    def __init__(self, postings: Dict[int, np.ndarray],
+                 deadline_us: float = 2000.0, flush_tier: int = 64,
+                 result_cache: int = 1024,
+                 clock: Callable[[], float] = time.perf_counter,
+                 warm_queries: Optional[Sequence[Sequence[int]]] = None,
+                 warm_top_k: int = 8,
+                 warm_b_tiers: Optional[Sequence[int]] = None,
+                 adaptive_deadline=False,
+                 max_inflight: int = 8,
+                 inline_tier_flush: bool = True,
+                 **kw):
+        super().__init__(postings, result_cache=result_cache, **kw)
+        if max_inflight < 1:
+            raise ValueError("max_inflight must be at least 1")
+        self.clock = clock
+        self.inline_tier_flush = bool(inline_tier_flush)
+        self.admission = AdmissionQueue(flush_tier=flush_tier,
+                                        deadline_us=deadline_us, clock=clock)
+        # serializes bucket DISPATCH; submit never takes it and collection
+        # runs outside it.  _flight_cv may be taken while holding it, never
+        # the reverse.
+        self._exec_lock = threading.RLock()
+        self.max_inflight = int(max_inflight)
+        self._flight_cv = threading.Condition()
+        self._flights: List[_Flight] = []
+        self._collecting = 0  # flights popped whose collect is running
+        if isinstance(adaptive_deadline, AdaptiveDeadline):
+            self.adaptive_deadline: Optional[AdaptiveDeadline] = \
+                adaptive_deadline
+        else:
+            self.adaptive_deadline = (AdaptiveDeadline() if adaptive_deadline
+                                      else None)
+        self._wake = threading.Event()
+        self._stop_flusher = threading.Event()
+        self._flusher: Optional[threading.Thread] = None
+        self._flusher_lock = threading.Lock()  # start/stop transitions only
+        self._flusher_idle_s = 0.05  # re-check cadence when the queue is empty
+        self._flusher_error: Optional[BaseException] = None
+        if warm_queries is not None:
+            if warm_b_tiers is None:
+                warm_b_tiers = pow2_tiers(flush_tier)
+            self.warm(warm_queries, top_k=warm_top_k, b_tiers=warm_b_tiers)
+
+    # -- background flusher lifecycle ---------------------------------------
+
+    def start(self) -> "AsyncSearchEngine":
+        """Start the background flusher thread (idempotent); returns
+        ``self``.  Daemonized, but call :meth:`stop` for a clean shutdown
+        that drains in-flight tickets."""
+        with self._flusher_lock:
+            if self._flusher is not None and self._flusher.is_alive():
+                return self
+            self._stop_flusher.clear()
+            self._flusher = threading.Thread(
+                target=self._flusher_loop, name="repro-torch-flusher",
+                daemon=True)
+            self._flusher.start()
+        return self
+
+    def stop(self, drain: bool = True) -> None:
+        """Stop the flusher (idempotent) and, by default, drain: join the
+        thread, then flush every pending bucket so no ticket stays
+        unresolved.  Raises if the flusher hit an error outside a bucket
+        (tickets were still drained)."""
+        with self._flusher_lock:
+            thread = self._flusher
+            self._flusher = None
+            if thread is not None:
+                self._stop_flusher.set()
+                self._wake.set()
+                thread.join()
+                self._wake.clear()
+        if drain:
+            self.drain()
+            if self.pending():
+                self.drain()  # a submit raced the join; its bucket is here
+        error, self._flusher_error = self._flusher_error, None
+        if error is not None:
+            raise RuntimeError(
+                "background flusher hit a non-bucket error "
+                "(tickets were still drained)") from error
+
+    @property
+    def running(self) -> bool:
+        """True while the background flusher thread is alive."""
+        thread = self._flusher
+        return thread is not None and thread.is_alive()
+
+    def __enter__(self) -> "AsyncSearchEngine":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.stop()
+        return False
+
+    def _flusher_loop(self) -> None:
+        """Each round: dispatch every due bucket (window-bounded), collect
+        the flights already finished without blocking, then wait: on the
+        oldest flight's collection while flights are out, else until the
+        next admission deadline (or the idle re-check), cut short by a
+        submit's wake.  Runs under the engine's CUDA device: the current
+        device is per thread."""
+        dev = self.device.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            while True:
+                next_us = self.admission.next_deadline_in_us()
+                if self._inflight_count() == 0:
+                    timeout = (self._flusher_idle_s if next_us is None
+                               else max(0.0, next_us * 1e-6))
+                    if timeout > 0:
+                        self._wake.wait(timeout)
+                if self._stop_flusher.is_set():
+                    # collect what is still in flight, so stop()'s drain only
+                    # deals with the queue
+                    while self._collect_one():
+                        pass
+                    return
+                self._wake.clear()
+                EXEC_COUNTERS.bump("flusher_wakeups")
+                try:
+                    self._flush(self.admission.take_due())
+                    while self._collect_one(ready_only=True):
+                        pass
+                    if not self._wake.is_set():
+                        self._collect_one()
+                except Exception as exc:  # bucket failures already resolved
+                    # their tickets; anything else surfaces on the next stop()
+                    self._flusher_error = exc
+
+    # -- admission API ------------------------------------------------------
+
+    def submit(self, terms: Sequence[int],
+               deadline_us: Optional[float] = None,
+               arrival_at: Optional[float] = None) -> Ticket:
+        """Admit one query; returns a Ticket resolving to a QueryResult.
+
+        Empty, host-routed and cache-hit queries resolve before return;
+        device-routed ones when their bucket flushes (full tier, deadline
+        or ``drain``).  With the flusher running, submit only queues and
+        wakes it.  ``arrival_at`` (engine-clock seconds) back-stamps the
+        query's scheduled arrival, so an open-loop generator's lateness counts
+        in the wait and the budget, on every path.
+        """
+        plan = self.plan(terms)
+        cached = self._cached_result(plan)
+        if cached is not None:
+            return self._resolved_now(cached, arrival_at)
+        if plan.algorithm != "device":
+            gen = self.cache.generation
+            result = self._execute_host_plan(plan)
+            self._store(plan, result, generation=gen)
+            return self._resolved_now(result, arrival_at)
+        if self.adaptive_deadline is not None:
+            key = adaptive_key(plan.sig)
+            self.adaptive_deadline.observe(key, self.clock())
+            if deadline_us is None:
+                deadline_us = self.adaptive_deadline.budget_for(
+                    key, self.admission.deadline_us)
+        ticket = self.admission.submit(plan.sig, plan, deadline_us,
+                                       submitted_at=arrival_at)
+        if self.running:
+            # the queue reports 0 for full tiers, so the wake covers both
+            # the tier flush and a new earliest deadline
+            self._wake.set()
+            if self.running:
+                return ticket
+            # the flusher stopped between the enqueue and the wake: fall
+            # through to manual mode (stop() re-drains partial buckets)
+        if self.inline_tier_flush:
+            self._flush(self.admission.take_full())
+            self._collect_all()
+        return ticket
+
+    def pump(self) -> int:
+        """Flush the buckets whose deadline expired or whose tier filled;
+        returns #buckets flushed.  Dispatches them back to back
+        (window-bounded), then collects every flight before returning."""
+        count = self._flush(self.admission.take_due())
+        self._collect_all()
+        return count
+
+    def drain(self) -> int:
+        """Flush every pending bucket now; returns #buckets flushed.
+        Afterwards every ticket issued before the call is resolved, also
+        those of flights another thread was collecting.  Idempotent and
+        safe while the flusher runs."""
+        count = self._flush(self.admission.take_all())
+        self._collect_all()
+        self._wait_flights()
+        return count
+
+    def pending(self) -> int:
+        """Queued, unflushed submissions (device path only)."""
+        return self.admission.pending()
+
+    def _resolved_now(self, result: QueryResult,
+                      arrival_at: Optional[float] = None) -> Ticket:
+        """A ticket resolved inside ``submit``; with ``arrival_at`` its wait
+        is the submitter's lateness (scheduled arrival to now)."""
+        now = self.clock()
+        arrival = now if arrival_at is None else min(float(arrival_at), now)
+        ticket = Ticket(submitted_at=arrival, deadline_us=0.0)
+        ticket.resolve(result, wait_us=(now - arrival) * 1e6)
+        return ticket
+
+    def _flush(self, buckets) -> int:
+        """Dispatch flushed buckets into the in-flight window; returns
+        #buckets dispatched.  Dispatch runs under ``_exec_lock``; when the
+        window is full this thread collects the oldest flight to free a
+        slot.  After the last dispatch the queue is polled again, so a
+        deadline that expired meanwhile is not left for the next pump.  A
+        bucket whose dispatch raises resolves its tickets with the error."""
+        count = 0
+        pending = list(buckets)
+        while pending:
+            with self._exec_lock:
+                while pending and self._inflight_count() < self.max_inflight:
+                    sig, entries = pending.pop(0)
+                    self._dispatch_one(sig, entries)
+                    count += 1
+                    if not pending:
+                        pending.extend(self.admission.take_due())
+            if pending and not self._collect_one():
+                # window full of flights other threads are collecting:
+                # wait for one to finish
+                with self._flight_cv:
+                    if not self._flights and self._collecting:
+                        self._flight_cv.wait(0.01)
+        return count
+
+    def _dispatch_one(self, sig, entries) -> None:
+        """Dispatch one admission bucket (caller holds ``_exec_lock``).
+
+        An index mutation between submit and flush can re-tier a queued
+        term, so each plan is re-planned from its query; entries whose
+        signature changed run through the synchronous path and resolve at
+        once.  ``wait_us`` runs from submit to this dispatch.
+        """
+        flush_at = self.clock()
+        live = []
+        for ticket, plan in entries:
+            if self.plan(plan.query_spec()).sig == sig:
+                live.append((ticket, plan))
+                continue
+            wait_us = (flush_at - ticket.submitted_at) * 1e6
+            try:
+                result = self.query(plan.query_spec())
+            except Exception as exc:
+                ticket.resolve_error(exc, wait_us=wait_us)
+            else:
+                ticket.resolve(result, wait_us=wait_us)
+        if not live:
+            return
+        items = [(row, plan) for row, (_, plan) in enumerate(live)]
+        gen = self.cache.generation  # capture before executing
+        try:
+            bucket = dispatch_bucket(
+                self.device.sets.__getitem__, sig, items,
+                device=self.device.device,
+                capacity_model=self.capacity_model)
+        except Exception as exc:
+            for ticket, _ in live:
+                ticket.resolve_error(
+                    exc, wait_us=(flush_at - ticket.submitted_at) * 1e6)
+            return
+        with self._flight_cv:
+            self._flights.append(_Flight(bucket, live, flush_at, gen))
+            self._flight_cv.notify_all()
+
+    # -- collection (outside the exec lock) ---------------------------------
+
+    def _inflight_count(self) -> int:
+        """Flights queued plus flights being collected (both hold slots)."""
+        with self._flight_cv:
+            return len(self._flights) + self._collecting
+
+    def _collect_one(self, ready_only: bool = False) -> bool:
+        """Pop and collect the oldest flight and resolve its tickets.
+        Returns False when there is nothing to pop, or, with
+        ``ready_only``, when the oldest flight's first pass has not
+        finished (a CUDA event query: never blocks).  Pops are atomic, so
+        each flight is collected exactly once."""
+        with self._flight_cv:
+            if not self._flights:
+                return False
+            if ready_only and not self._flights[0].bucket.is_ready():
+                return False
+            flight = self._flights.pop(0)
+            self._collecting += 1
+        try:
+            self._resolve_flight(flight)
+        finally:
+            with self._flight_cv:
+                self._collecting -= 1
+                self._flight_cv.notify_all()
+        return True
+
+    def _collect_all(self) -> None:
+        """Collect every queued flight, in dispatch order."""
+        while self._collect_one():
+            pass
+
+    def _wait_flights(self) -> None:
+        """Block until the window is empty: collect queued flights and wait
+        out those other threads are collecting (drain's guarantee)."""
+        while True:
+            if self._collect_one():
+                continue
+            with self._flight_cv:
+                if not self._flights and not self._collecting:
+                    return
+                self._flight_cv.wait()
+
+    def _resolve_flight(self, flight: _Flight) -> None:
+        """Collect one flight and resolve its tickets: results are cached
+        under the dispatch-time generation; a failed collect resolves every
+        ticket with the error."""
+        try:
+            by_row = flight.bucket.collect()
+        except Exception as exc:
+            for ticket, _ in flight.entries:
+                ticket.resolve_error(
+                    exc, wait_us=(flight.flush_at - ticket.submitted_at) * 1e6)
+            return
+        for row, (ticket, plan) in enumerate(flight.entries):
+            res, stats = by_row[row]
+            result = QueryResult(res, stats.get("batch_us", 0.0),
+                                 "rangroupscan/device", stats)
+            self._store(plan, result, generation=flight.generation)
+            ticket.resolve(
+                result, wait_us=(flight.flush_at - ticket.submitted_at) * 1e6)
 
 
 @dataclasses.dataclass
@@ -374,6 +853,22 @@ class SuggestEngine:
                            (suggestions, algorithm), generation=gen)
         return results  # type: ignore[return-value]
 
+    def warm(self, sample_ids: Sequence[int], k: int,
+             b_tiers: Sequence[int] = (1,)) -> List[ShapeSig]:
+        """Run the count specializations a sample of probes would meet:
+        plans each sample id exactly as :meth:`suggest_batch` will
+        (pre-filter included, so the candidate tiers match live traffic)
+        and runs every device signature at each tier of ``b_tiers``.
+        Serving those probes in buckets of up to ``max(b_tiers)`` rows then
+        counts no ``count_traces``.  Returns the warmed signatures."""
+        if self.device is None:
+            raise ValueError("warming is a device-path concept")
+        plans = [p for sid in sample_ids for p in self._plans_for(sid, k)]
+        self.warmed_sigs = warm_from_plans(
+            plans, self.device.sets.__getitem__, top_k=len(plans) or 1,
+            b_tiers=b_tiers, device=self.device.device)
+        return self.warmed_sigs
+
 
 def zipf_query_log(index_terms: Sequence[int], n_queries: int = 1000,
                    seed: int = 1, kw_dist=((2, 0.68), (3, 0.23), (4, 0.09))
@@ -391,3 +886,16 @@ def zipf_query_log(index_terms: Sequence[int], n_queries: int = 1000,
                          (rng.pareto(1.0, size=k) * 10).astype(int))
         out.append(sorted(set(terms[idx].tolist())) or [int(terms[0])])
     return out
+
+
+def repeated_query_log(index_terms: Sequence[int], n_queries: int = 1000,
+                       n_distinct: int = 64, seed: int = 1) -> List[List[int]]:
+    """A live-traffic-shaped log: ``n_queries`` drawn Zipf-style from a pool
+    of ``n_distinct`` conjunctions, so exact repeats occur (the regime where
+    the result cache pays).  The pool follows the paper's keyword-count mix
+    via :func:`zipf_query_log`."""
+    pool = zipf_query_log(index_terms, n_distinct, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    ranks = np.arange(1, len(pool) + 1, dtype=np.float64)
+    p = (1.0 / ranks) / (1.0 / ranks).sum()
+    return [pool[i] for i in rng.choice(len(pool), size=n_queries, p=p)]
