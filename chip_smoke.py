@@ -89,6 +89,31 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    ``.cpu()`` (``plain_copy_collect``), in turns; prints
                    the light collect's time and whether the heavy bucket
                    was still running (a measurement, not a check).
+ 10. boolean expressions — phase 4's index again, a log of 96 ∪/∩/∖
+               expressions in the shape of ``benchmarks/fig_boolean_qps.py``
+               (4 union bases ``(2j | 2j+1)``, each query ``base & extra``,
+               every third ``(base & extra) - cut``), 32 ``zipf_query_log``
+               conjunctions and 4 expressions that normalize to
+               conjunctions (``a&b``, ``(a&b)&a``):
+               10a ``SearchEngine.query_batch`` of the log (parse strings
+                   and term lists), cache off: every answer equals numpy's
+                   ``union1d`` / ``intersect1d`` / ``setdiff1d``, expression
+                   and flat buckets both run, and both phase-1 and phase-2
+                   kernels launch (path ``expression log``); a union base
+                   at capacity 16 through ``intersect_expr_batch`` must
+                   re-run at the total leaf width and agree; prints
+                   queries/s, passes, re-runs, the bytes each route's
+                   collects copied to the host (read off
+                   ``core.engine._to_host``) and a profiled pass (busy share,
+                   the sorts, ``searchsorted`` and copies by name);
+               10b ``AsyncSearchEngine`` with the result cache on, flush
+                   tier 1, warmed through ``warm_from_plans`` on the log:
+                   the log submitted as parse strings and drained; every
+                   answer equals the oracle, no expression or flat trace
+                   at serve time, at least one subexpression-cache hit and
+                   one host merge; prints the routes (device / subcache /
+                   cache) and the mean submit time of each, the device
+                   route split into expression and flat passes.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -98,7 +123,9 @@ read just after it: ``query_batch`` (phase 4), ``suggest_batch`` (phase 7,
 after warming), ``SuggestEngine.warm`` (phase 7), ``suggest_batch small
 sets`` (phase 8), ``AsyncSearchEngine.warm`` (9a), ``async 9a virtual
 clock``, ``async 9b flusher`` (its ``query_batch`` baseline excluded) and
-``async 9c adaptive``.  The last lines are the kernel table as JSON (each
+``async 9c adaptive``, ``expression log`` (10a), ``AsyncSearchEngine.warm
+expressions`` and ``async 10b expressions``.  The last lines are the kernel
+table as JSON (each
 kernel's ``launches`` on its main path, phase 4 or 7, and
 ``launches_by_path``) and ``{"ok": true, "device": {...}}``.  ``--report``
 writes a fuller JSON report (every count, time and profile row) to PATH.
@@ -160,6 +187,14 @@ FLUSHER_THREADS = 4
 FLUSHER_TIER, FLUSHER_DEADLINE_US, FLUSHER_INFLIGHT = 64, 2000.0, 8
 FLUSHER_PROFILED = 128       # queries in 9b's profiled run
 ADAPTIVE_REPEATS = 8         # 9c: serves of the planted pair
+
+# -- boolean expressions on phase 4's index (phase 10) -------------------------
+EXPR_QUERIES = 96            # shared_subtree_log: base & extra, every third
+EXPR_BASES = 4               # (base & extra) - cut; bases (2j | 2j+1)
+EXPR_FLAT = 32               # zipf_query_log conjunctions mixed in
+EXPR_FORCED_CAP = 16         # 10a: a union base at capacity 16 must re-run
+EXPR_FLUSH_TIER = 1          # 10b: each submit flushes at once, so later
+EXPR_CACHE = 1024            # roots over a served base merge on the host
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -684,10 +719,14 @@ def serve_slice(engine, log, postings, sync=lambda: None):
     return results, wall
 
 
-def profile_breakdown(torch, run):
+def profile_breakdown(torch, run,
+                      groups=("bitmap_filter", "group_match", "pair_count")):
     """Device time by kernel name over one more pass (``run()``), and the
     device's busy share of that pass's wall time (None where the profiler
-    saw nothing)."""
+    saw nothing).  ``kernel_ms`` sums, for each of ``groups``, the rows
+    whose name holds it (case-insensitive); a row counts once, to the first
+    group that matches, so ``searchsorted`` listed before ``sort`` keeps
+    its rows out of the sorts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -709,14 +748,18 @@ def profile_breakdown(torch, run):
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    kernel_ms = dict.fromkeys(groups, 0.0)
+    for name, ms, _ in rows:
+        group = next((k for k in groups if k.lower() in name.lower()), None)
+        if group is not None:
+            kernel_ms[group] += ms
     return {
         "wall_s": wall,
         "device_busy_ms": busy_ms if rows else None,
         "device_busy_share": busy_ms / (wall * 1e3) if rows else None,
         "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:12]],
         # each kernel's device ms over all its rows (one per template width)
-        "kernel_ms": {k: sum(ms for n, ms, _ in rows if k in n)
-                      for k in ("bitmap_filter", "group_match", "pair_count")},
+        "kernel_ms": kernel_ms,
     }
 
 
@@ -1567,6 +1610,344 @@ def run_online_front_end(torch, engine, postings, planted, main_log, report,
     return paths
 
 
+# -- phase 10: boolean expressions ---------------------------------------------
+
+def shared_subtree_log(n_terms: int, n_queries: int, n_bases: int,
+                       seed: int):
+    """``benchmarks/fig_boolean_qps.py::shared_subtree_log`` as tuples
+    ``(j, extra, cut)``: base ``j`` is ``2j | 2j+1``; each query draws a base
+    and an extra term from the remaining vocabulary and is ``base & extra``,
+    every third ``(base & extra) - cut`` (``cut`` None otherwise)."""
+    rng = np.random.default_rng(seed)
+    extras = list(range(2 * n_bases, n_terms))
+    log = []
+    for i in range(n_queries):
+        j = int(rng.integers(n_bases))
+        extra = extras[int(rng.integers(len(extras)))]
+        cut = extras[int(rng.integers(len(extras)))] if i % 3 == 2 else None
+        log.append((j, extra, cut))
+    return log
+
+
+def expr_string(q) -> str:
+    """A ``shared_subtree_log`` tuple as the parse string users send."""
+    j, extra, cut = q
+    s = f"({2 * j}|{2 * j + 1})&{extra}"
+    return s if cut is None else f"({s})-{cut}"
+
+
+class ExprOracle:
+    """Answers with numpy's set routines, memoized per base, (base, extra)
+    and query: independent of the port's ``eval_host``.  A term list takes
+    the membership ``oracle``."""
+
+    def __init__(self, postings):
+        self.postings = postings
+        self.memo = {}
+
+    def _get(self, key, make):
+        if key not in self.memo:
+            self.memo[key] = make()
+        return self.memo[key]
+
+    def __call__(self, q) -> np.ndarray:
+        if isinstance(q, list):
+            return self._get(tuple(q), lambda: oracle(self.postings, q))
+        j, extra, cut = q
+        p = self.postings
+        base = self._get(("base", j), lambda: np.union1d(p[2 * j],
+                                                         p[2 * j + 1]))
+        both = self._get(("and", j, extra), lambda: np.intersect1d(
+            base, p[extra], assume_unique=True))
+        if cut is None:
+            return both
+        return self._get(q, lambda: np.setdiff1d(both, p[cut],
+                                                 assume_unique=True))
+
+
+class HostCopyMeter:
+    """Bytes that ``core.engine._to_host`` brings to the host while the
+    meter is on, by the function that asked for the copy (its qualified
+    name, e.g. ``dispatch_expr_batch.<locals>.collect``): the ``nbytes`` of
+    the arrays each copy returns, first passes and re-runs alike."""
+
+    def __init__(self):
+        self.bytes = {}
+
+    def __enter__(self):
+        from repro_torch.core import engine
+
+        self._engine, self._to_host = engine, engine._to_host
+
+        def to_host(tensors, ready):
+            caller = sys._getframe(1).f_code.co_qualname
+            arrays = self._to_host(tensors, ready)
+            self.bytes[caller] = self.bytes.get(caller, 0) + sum(
+                a.nbytes for a in arrays)
+            return arrays
+
+        engine._to_host = to_host
+        return self
+
+    def __exit__(self, *exc):
+        self._engine._to_host = self._to_host
+
+    def of(self, dispatcher: str) -> int:
+        """Bytes copied for the passes of ``core.engine.<dispatcher>``."""
+        return sum(n for caller, n in self.bytes.items()
+                   if caller.split(".")[0] == dispatcher)
+
+
+def route_of(result) -> str:
+    """The route a served query took, as the JAX package's request span
+    names it: ``subcache`` (merged from cached subexpressions), ``cache``
+    (a root hit), else ``device`` or the host path's name."""
+    if result.stats.get("subexpr_merge"):
+        return "subcache"
+    if result.stats.get("cached"):
+        return "cache"
+    return "device" if result.algorithm.endswith("/device") else \
+        result.algorithm
+
+
+def run_boolean_expressions(torch, engine, postings, report,
+                            device="cuda") -> dict:
+    """Phase 10 on phase 4's index: 10a ``query_batch`` of a mixed log
+    (shared-subtree expressions, flat conjunctions, expressions that
+    normalize to flat ones) with the cache off, against numpy's set
+    routines, with a forced overflow re-run and a profiled pass; 10b the
+    same log as parse strings through ``AsyncSearchEngine`` with the result
+    cache on, after warming its signatures.  Returns each path's launches
+    of the phase-1 and phase-2 kernels (counts set to 0 just before each
+    run, read just after it)."""
+    from repro_torch.core.engine import (
+        EXEC_COUNTERS, expr_total_width, intersect_expr_batch,
+    )
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+    from repro_torch.serve.search import zipf_query_log
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda}
+    paths = {}
+
+    def counted(path: str, run):
+        for k in kernels.values():
+            k.launches = 0
+        result = run()
+        paths[path] = {name: k.launches for name, k in kernels.items()}
+        return result
+
+    exprs = shared_subtree_log(N_TERMS, EXPR_QUERIES, EXPR_BASES, SEED + 10)
+    flat = zipf_query_log(range(N_TERMS), EXPR_FLAT, seed=SEED + 11)
+    pairs = [q[:2] for q in flat if len(q) >= 2][:2]
+    normal = [f"{a}&{b}" for a, b in pairs] + [f"({a}&{b})&{a}"
+                                               for a, b in pairs]
+    # the log: an expression, then a flat conjunction, while both last
+    log = []
+    for i, q in enumerate(exprs):
+        log.append(q)
+        if i < len(flat):
+            log.append(flat[i])
+    log += [list(map(int, s.replace("(", "").replace(")", "").split("&")))
+            for s in normal]
+    served = [expr_string(q) if isinstance(q, tuple) else q for q in log]
+    served[-len(normal):] = normal  # served as strings, answered as lists
+    want = ExprOracle(postings)
+    out = {"expressions": len(exprs), "flat": len(flat),
+           "flat_normalizing": len(normal), "queries": len(log), "s": {}}
+
+    def done(part: str, since: float) -> float:
+        out["s"][part] = time.perf_counter() - since
+        print(f"phase {part}: {out['s'][part]:.1f} s")
+        return time.perf_counter()
+
+    t_part = t_oracle = time.perf_counter()
+    answers = [want(q) for q in log]
+    out["oracle_s"] = time.perf_counter() - t_oracle
+    print(f"phase 10 log: {len(exprs)} expressions over {EXPR_BASES} union "
+          f"bases, {len(flat)} flat conjunctions, {len(normal)} expressions "
+          f"that normalize to conjunctions ({len(log)} queries); numpy "
+          f"oracle {out['oracle_s']:.1f} s")
+
+    def check(results, what: str) -> None:
+        require(len(results) == len(log), f"{what}: {len(results)} results")
+        for s_, res, ans in zip(served, results, answers):
+            require(np.array_equal(res.doc_ids, ans),
+                    f"{what}: {s_!r} has {len(res.doc_ids)} ids, the oracle "
+                    f"{len(ans)}")
+
+    # 10a: query_batch, cache off
+    plans = [engine.plan(q) for q in served]
+    sigs = {p.sig for p in plans if p.sig is not None}
+    n_expr_buckets = sum(sig.eshape is not None for sig in sigs)
+    require(all(p.expr is None for p in plans[-len(normal):]),
+            "10a: a flat-normalizing expression kept its expression plan")
+    EXEC_COUNTERS.reset()
+    sync()
+    t0 = time.perf_counter()
+    with HostCopyMeter() as meter:
+        results = counted("expression log",
+                          lambda: engine.query_batch(served))
+        sync()
+    wall = time.perf_counter() - t0
+    counters = EXEC_COUNTERS.snapshot()
+    check(results, "10a")
+    algos = [r.algorithm for r in results]
+    require(n_expr_buckets >= 1 and "expr/device" in algos,
+            "10a: no expression bucket ran")
+    require("rangroupscan/device" in algos, "10a: no flat bucket ran")
+    for name, n in paths["expression log"].items():
+        require(n > 0, f"10a: {name} never launched on the expression log")
+    copied = meter.of("dispatch_expr_batch")
+    flat_bytes = meter.of("dispatch_device_batch")
+    require(copied > 0 and flat_bytes > 0,
+            f"10a: no copy to the host seen ({meter.bytes})")
+    out["10a"] = {
+        "wall_s": wall, "qps": len(log) / wall, "counters": counters,
+        "expr_buckets": n_expr_buckets, "buckets": len(sigs),
+        "expr_bytes_to_host": copied, "flat_packed_to_host": flat_bytes,
+        "algorithms": {a: algos.count(a) for a in sorted(set(algos))},
+        "launches": paths["expression log"],
+    }
+    print(f"phase 10a query_batch: {len(log)} queries in {wall:.3f} s, "
+          f"{len(log) / wall:.1f} queries/s; {len(sigs)} buckets "
+          f"({n_expr_buckets} expression), {counters['expr_calls']} expression "
+          f"passes + {counters['expr_rerun_calls']} re-runs, "
+          f"{counters['batch_calls']} flat passes + {counters['rerun_calls']} "
+          f"re-runs; {copied} bytes copied to the host by expression "
+          f"collects, {flat_bytes} by flat ones; {counters['collect_us']} us "
+          f"in collect; "
+          f"routes {out['10a']['algorithms']}; launches "
+          f"{paths['expression log']}; all answers equal the oracle")
+
+    # the forced re-run: the cheapest union base at capacity 16
+    def total_width(q) -> int:
+        sig = engine.plan(expr_string(q)).sig
+        return expr_total_width(sig.ts, sig.gmaxes)
+
+    base_q = min((q for q in exprs if q[2] is None), key=total_width)
+    plan = engine.plan(expr_string(base_q))
+    row = [engine.device.sets[t] for t in plan.terms]
+    EXEC_COUNTERS.reset()
+    (res, st), = intersect_expr_batch([row], plan.sig.eshape,
+                                      capacity=EXPR_FORCED_CAP, device=device)
+    forced = EXEC_COUNTERS.snapshot()
+    require(np.array_equal(res, want(base_q)),
+            "10a: the forced re-run disagrees with the oracle")
+    require(forced["expr_rerun_calls"] >= 1, "10a: no forced re-run")
+    require(st["capacity"] == expr_total_width(plan.sig.ts, plan.sig.gmaxes),
+            "10a: the re-run did not run at the total leaf width")
+    out["10a"]["forced"] = {"query": expr_string(base_q),
+                            "expr_rerun_calls": forced["expr_rerun_calls"],
+                            "r": st["r"], "capacity": st["capacity"]}
+    print(f"phase 10a forced overflow: {expr_string(base_q)} at capacity "
+          f"{EXPR_FORCED_CAP}: {forced['expr_rerun_calls']} re-run at "
+          f"{st['capacity']}, {st['r']} ids equal the oracle")
+
+    prof = profile_breakdown(
+        torch, lambda: engine.query_batch(served),
+        groups=("bitmap_filter", "group_match", "searchsorted", "sort",
+                "memcpy"))
+    out["10a"]["profile"] = prof
+    print(f"phase 10a profiled pass: wall {prof['wall_s']:.3f} s, device busy "
+          f"{prof['device_busy_ms']} ms, share {prof['device_busy_share']}; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["kernel_ms"].items()))
+    for r in prof["top"][:8]:
+        print(f"  {r['ms']:10.3f} ms  {r['calls']:6d}x  {r['name'][:90]}")
+    del results
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_part = done("10a", t_part)
+
+    # 10b: AsyncSearchEngine, result cache on, warmed
+    clk = SimClock()
+    eng = async_engine(engine, device, flush_tier=EXPR_FLUSH_TIER,
+                       result_cache=EXPR_CACHE, clock=clk)
+    EXEC_COUNTERS.reset()
+    t0 = time.perf_counter()
+    warmed = counted("AsyncSearchEngine.warm expressions", lambda: eng.warm(
+        served, top_k=len(log), b_tiers=(EXPR_FLUSH_TIER,)))
+    sync()
+    warm = EXEC_COUNTERS.snapshot()
+    warm_s = time.perf_counter() - t0
+    n_expr_warmed = sum(sig.eshape is not None for sig in warmed)
+    print(f"phase 10b warm: {len(warmed)} signatures ({n_expr_warmed} "
+          f"expression) at tier {EXPR_FLUSH_TIER}, "
+          f"{warm['warm_executions']} warm executions, {warm['warm_reruns']} "
+          f"at the re-run capacity, {warm['expr_traces']} expression and "
+          f"{warm['batch_traces']} flat traces, {warm_s:.1f} s")
+    EXEC_COUNTERS.reset()
+
+    submit_s = []
+
+    def serve_async():
+        tickets = []
+        for i, s_ in enumerate(served):
+            clk.t = i * ASYNC_GAP_US * 1e-6
+            t1 = time.perf_counter()
+            tickets.append(eng.submit(s_))
+            submit_s.append(time.perf_counter() - t1)
+        eng.drain()
+        return tickets
+
+    t0 = time.perf_counter()
+    tickets = counted("async 10b expressions", serve_async)
+    sync()
+    wall_b = time.perf_counter() - t0
+    cb = EXEC_COUNTERS.snapshot()
+    require(all(t.done and t.error is None for t in tickets),
+            "10b: a ticket unresolved or failed")
+    check([t.value for t in tickets], "10b")
+    routes = [route_of(t.value) for t in tickets]
+    route_counts = {r: routes.count(r) for r in sorted(set(routes))}
+    # flush tier 1: each ticket resolves inside its own submit
+    route_s = {r: sum(dt for dt, rr in zip(submit_s, routes) if rr == r)
+               for r in route_counts}
+    # the device route apart by pass kind: expression passes vs flat ones
+    by_algo = {}
+    for dt, rr, t in zip(submit_s, routes, tickets):
+        if rr == "device":
+            n, sec = by_algo.get(t.value.algorithm, (0, 0.0))
+            by_algo[t.value.algorithm] = (n + 1, sec + dt)
+    device_mean_ms = {a: {"submits": n, "mean_ms": sec / n * 1e3}
+                      for a, (n, sec) in sorted(by_algo.items())}
+    require(cb["expr_traces"] == 0,
+            f"10b: {cb['expr_traces']} serve-time expression traces")
+    require(cb["batch_traces"] == 0,
+            f"10b: {cb['batch_traces']} serve-time flat traces")
+    require(cb["subexpr_host_merges"] >= 1, "10b: no host merge")
+    require(cb["subexpr_cache_hits"] >= 1, "10b: no subexpression hit")
+    out["10b"] = {"warm_s": warm_s, "warm": warm, "warmed": len(warmed),
+                  "wall_s": wall_b, "qps": len(log) / wall_b, "counters": cb,
+                  "routes": route_counts, "route_s": route_s,
+                  "device_submit_by_algorithm": device_mean_ms,
+                  "mean_submit_ms": {r: route_s[r] / route_counts[r] * 1e3
+                                     for r in route_counts}}
+    print(f"phase 10b async: {len(log)} parse strings at flush tier "
+          f"{EXPR_FLUSH_TIER}, cache on: {wall_b:.3f} s, "
+          f"{len(log) / wall_b:.2f} queries/s; routes {route_counts}, "
+          f"seconds by route "
+          f"{ {r: round(v, 3) for r, v in route_s.items()} }, mean ms per "
+          f"submit {out['10b']['mean_submit_ms']}, device submits by pass "
+          f"(count, mean ms) { {a: (d['submits'], d['mean_ms'])
+                               for a, d in device_mean_ms.items()} }; "
+          f"{cb['expr_calls']} expression passes, {cb['batch_calls']} flat; "
+          f"subexpression cache hits {cb['subexpr_cache_hits']}, misses "
+          f"{cb['subexpr_cache_misses']}, stores {cb['subexpr_cache_stores']}, "
+          f"host merges {cb['subexpr_host_merges']}; serve-time traces "
+          f"{cb['expr_traces']} + {cb['batch_traces']}; all answers equal "
+          f"the oracle")
+    del eng, tickets
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    done("10b", t_part)
+    out["launches_by_path"] = paths
+    report["expressions"] = out
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -1713,9 +2094,15 @@ def main(argv=None) -> int:
     # phase 9: the online front end on phase 4's index
     async_launches = run_online_front_end(torch, engine, postings, planted,
                                           log, report)
-    del engine, postings
     torch.cuda.empty_cache()
     t_phase = phase_done("9 online front end", t_phase)
+
+    # phase 10: boolean expressions on phase 4's index
+    async_launches.update(run_boolean_expressions(torch, engine, postings,
+                                                  report))
+    del engine, postings
+    torch.cuda.empty_cache()
+    t_phase = phase_done("10 boolean expressions", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},

@@ -39,6 +39,11 @@ capacity G, the specialization an overflowing sibling's re-run needs
 (counted in ``warm_reruns``; the JAX package has no such pass, so there
 that sibling traces at serve time).
 
+The boolean expression path (:func:`dispatch_expr_batch`) runs a bucket of
+same-shape ∪/∩/∖ expressions as one pass of sort-merge set passes
+(``kernels.setops``, torch ops: they were never Pallas), one per DAG node,
+with one re-run of the overflowing queries at the total leaf width.
+
 The count-only suggestion path (:func:`dispatch_count_batch`) runs a bucket
 of (probe, candidates) rows as one pass: the (B, C) intersection counts
 (``kernels.ops.count_block``, a hand-written CUDA kernel on the card that
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 from ..device import Device, resolve_device
-from ..kernels import ops
+from ..kernels import ops, setops
 from ..kernels.count import CountTable, make_count_table
 from .partition import PrefixIndex
 
@@ -67,13 +72,17 @@ __all__ = [
     "PendingBatch",
     "clear_specializations",
     "default_capacity",
+    "default_expr_capacity",
     "default_k_tier",
     "dispatch_count_batch",
     "dispatch_device_batch",
+    "dispatch_expr_batch",
+    "expr_total_width",
     "gmax_tier",
     "intersect_count_batch",
     "intersect_device",
     "intersect_device_batch",
+    "intersect_expr_batch",
     "pow2_tiers",
     "set_sort_key",
     "warm_executables",
@@ -101,8 +110,9 @@ class ExecCounters(dict):
     - ``warm_executions``  (representative, B-tier) passes run by
       :func:`warm_executables` / :func:`warm_from_plans`, as in the JAX
       package;
-    - ``warm_reruns``  the port's own: passes at capacity G that
-      :func:`warm_from_plans` adds for the re-run's specialization;
+    - ``warm_reruns``  the port's own: passes at the re-run's capacity (G,
+      or an expression's total leaf width) that :func:`warm_from_plans`
+      adds for that specialization;
     - ``result_cache_hits`` / ``result_cache_misses``  result-cache lookups;
     - ``tier_flushes`` / ``deadline_flushes``  admission-queue flushes by
       cause (``serve/admission.py``);
@@ -113,6 +123,14 @@ class ExecCounters(dict):
     - ``adaptive_promotions`` / ``adaptive_demotions`` /
       ``adaptive_overflow_saved``  learned capacity-tier moves and re-runs
       a learned tier absorbed (``exec/adaptive.py``);
+    - ``expr_calls`` / ``expr_traces`` / ``expr_rerun_calls``  the same
+      pass / first-sighting / overflow re-run triple for the boolean
+      expression path (:func:`dispatch_expr_batch`);
+    - ``subexpr_cache_hits`` / ``subexpr_cache_misses``  lookups of
+      canonical subexpression entries (``exec/cache.py::ResultCache.
+      get_sub``); ``subexpr_cache_stores``  sub-entries stored;
+      ``subexpr_host_merges``  expression queries answered on the host
+      from cached subexpressions, with no device work;
     - ``count_calls``  passes of the count-only suggest path;
     - ``suggest_prefilter_in`` / ``suggest_prefilter_kept``  candidates the
       suggest pre-filter examined / kept;
@@ -133,6 +151,9 @@ class ExecCounters(dict):
         "flusher_wakeups",
         "adaptive_promotions", "adaptive_demotions",
         "adaptive_overflow_saved",
+        "expr_calls", "expr_traces", "expr_rerun_calls",
+        "subexpr_cache_hits", "subexpr_cache_misses",
+        "subexpr_cache_stores", "subexpr_host_merges",
         "count_calls", "count_traces",
         "suggest_prefilter_in", "suggest_prefilter_kept",
         "dispatch_failures",
@@ -536,6 +557,206 @@ def intersect_device(sets: Sequence[DeviceSet], capacity: Optional[int] = None,
     return result, stats
 
 
+# -- boolean expression path ---------------------------------------------------
+#
+# An expression bucket is B queries of one leaf-erased shape (``eshape``,
+# ``exec.expr.expr_shape``) whose leaves share (t, gmax) position by position.
+# Each leaf's (2^t, gmax) values densify to one sorted key row per query,
+# and every DAG node is one set pass over its children's rows, at width
+# min(capacity, natural width).  A query any node of which truncated
+# (true count > width) is re-run ONCE at the total leaf width, where no
+# node can truncate, so results are exact.  The pass also emits every
+# composite proper subexpression's rows (postorder), which the serving
+# layer stores in its subexpression cache.
+
+
+def _expr_signature(row: Sequence[DeviceSet]
+                    ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Leaf signature in TRAVERSAL order: expression rows follow the
+    expression's leaf walk (``exec.expr.leaf_terms``) and are never
+    re-sorted (a position names the DAG leaf a set feeds)."""
+    return tuple(s.t for s in row), tuple(s.gmax for s in row)
+
+
+def expr_total_width(ts: Tuple[int, ...], gmaxes: Tuple[int, ...]) -> int:
+    """Total dense width of an expression's leaves: the capacity at which
+    no node can truncate (every result value comes from some leaf)."""
+    return sum((1 << t) * g for t, g in zip(ts, gmaxes))
+
+
+def default_expr_capacity(ts: Tuple[int, ...],
+                          gmaxes: Tuple[int, ...]) -> int:
+    """Node-buffer tier for expressions: total/4 on the power-of-two
+    lattice, floored at 64 (the expression analogue of
+    :func:`default_capacity`; an adaptive ``CapacityModel`` refines it per
+    shape from observed node counts)."""
+    total = expr_total_width(ts, gmaxes)
+    tier = 1 << max(0, (total - 1).bit_length())
+    return max(64, tier // 4)
+
+
+def _count_expr_subs(eshape) -> int:
+    """Number of composite proper subexpressions of a shape (the sub-row
+    count :func:`_eval_expr_block` emits)."""
+    if eshape == "T":
+        return 0
+    return sum(_count_expr_subs(c) + (c != "T") for c in eshape[1:])
+
+
+def _eval_expr_block(dense: Sequence[torch.Tensor], eshape, capacity: int):
+    """Evaluate one expression DAG over dense leaf rows, bottom-up.
+
+    ``dense[i]``: (B, W_i) sorted int32 key rows of leaf i in traversal
+    order (``setops.densify``).  Returns ``(root, r, max_count, overflow,
+    subs)``: the root's (B, W_root) sorted SENTINEL-padded key rows, its
+    true count, the largest true count over every composite node (the
+    adaptive model's survivor statistic), the any-node-truncated flag per
+    query, and the postorder tuple of composite proper-subexpression rows.
+    """
+    leaves = iter(dense)
+    nodes: List[Tuple[torch.Tensor, torch.Tensor]] = []  # postorder
+
+    def node(shape) -> torch.Tensor:
+        if shape == "T":
+            return next(leaves)
+        kids = [node(c) for c in shape[1:]]
+        if shape[0] == "-":
+            out, count = setops.diff_pass(
+                kids[0], kids[1], min(capacity, kids[0].shape[1]))
+        elif shape[0] == "|":
+            out, count = setops.union_pass(
+                kids, min(capacity, sum(k.shape[1] for k in kids)))
+        else:
+            out, count = setops.intersect_pass(
+                kids, min(capacity, kids[0].shape[1]))
+        nodes.append((out, count))
+        return out
+
+    node(eshape)
+    max_count = torch.stack([count for _, count in nodes]).max(dim=0).values
+    overflow = torch.stack([count > out.shape[1]
+                            for out, count in nodes]).any(dim=0)
+    root, r = nodes[-1]  # postorder: the root comes last
+    return root, r, max_count, overflow, tuple(out for out, _ in nodes[:-1])
+
+
+def _eval_expr_batch(vals: Sequence[Sequence[torch.Tensor]], eshape,
+                     capacity: int):
+    """One pass over a same-shape bucket: ``vals[i][b]`` is query b's
+    (2^t_i, gmax_i) values of leaf i.  Each leaf's B rows are stacked and
+    densified, then the DAG runs (:func:`_eval_expr_block`)."""
+    dense = [setops.densify(torch.stack(list(v))) for v in vals]
+    return _eval_expr_block(dense, eshape, capacity)
+
+
+def _expr_spec(dev: torch.device, eshape, ts: Tuple[int, ...],
+               gmaxes: Tuple[int, ...], cap: int, n_rows: int) -> Tuple:
+    """The specialization an expression pass of ``n_rows`` rows runs."""
+    return ("expr", str(dev), eshape, ts, gmaxes, cap, _b_tier(n_rows))
+
+
+def _compact_u32(row: np.ndarray) -> np.ndarray:
+    """A sorted SENTINEL-padded key row -> the sorted uint32 values (the
+    serving result format).  Key order is unsigned value order, so the
+    real keys are already ascending."""
+    flat = row.ravel()
+    return setops.to_values_np(flat[flat != setops.SENTINEL])
+
+
+def dispatch_expr_batch(
+    queries: Sequence[Sequence[DeviceSet]],
+    eshape,
+    capacity: Optional[int] = None,
+    sub_keys: Optional[Sequence[Sequence]] = None,
+    device: Device = "cuda",
+) -> PendingBatch:
+    """Enqueue the first pass of a same-shape expression bucket.
+
+    ``queries[i]`` is query i's leaf DeviceSets in the expression's
+    traversal order (NOT (t, n)-sorted), all on ``device``; every query
+    shares ``eshape`` and the leaf signature.  ``sub_keys[i]`` (optional)
+    are query i's canonical subexpression keys, postorder: when given,
+    collected stats carry ``"subexprs": [(key, sorted values), ...]`` for
+    the serving layer to store.  The collect copies the root rows and every
+    composite node's rows to the host.  Counters: ``expr_calls`` per pass,
+    ``expr_rerun_calls`` per overflow pass, ``expr_traces`` per first
+    sighting of a pass's (shape, signature, capacity, pow2 B-tier).  The
+    batch runs at its own size B.
+    """
+    dev = resolve_device(device)
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    ordered = [list(q) for q in queries]
+    ts, gmaxes = _expr_signature(ordered[0])
+    for q in ordered:
+        if _expr_signature(q) != (ts, gmaxes):
+            raise ValueError("bucket mixes expression leaf signatures")
+        for s in q:
+            if s.device != dev:
+                raise ValueError(f"set on {s.device}, bucket runs on {dev}")
+    total = expr_total_width(ts, gmaxes)
+
+    def issue(active: List[int], cap: int):
+        vals = [[ordered[i][j].vals for i in active] for j in range(len(ts))]
+        EXEC_COUNTERS.bump("expr_calls")
+        _note_specialization("expr_traces", _expr_spec(
+            dev, eshape, ts, gmaxes, cap, len(active)))
+        root, r, max_count, overflow, subs = _eval_expr_batch(vals, eshape,
+                                                               cap)
+        return [root, r, max_count, overflow, *subs], _record_ready(dev)
+
+    first_active = list(range(len(ordered)))
+    first_cap = min(capacity or default_expr_capacity(ts, gmaxes), total)
+    first_handles, first_ready = issue(first_active, first_cap)
+
+    def collect() -> List[Tuple[np.ndarray, Dict]]:
+        results: List[Optional[Tuple[np.ndarray, Dict]]] = [None] * len(ordered)
+        active, cap = first_active, first_cap
+        handles, ready = first_handles, first_ready
+        while True:
+            root_h, r_h, maxc_h, over_h, *subs_h = _to_host(handles, ready)
+            rerun = []
+            for row, qi in enumerate(active):
+                if over_h[row]:
+                    rerun.append(qi)
+                    continue
+                stats = {
+                    "expr_width": total,
+                    "tuples_survived": int(maxc_h[row]),
+                    "capacity": cap,
+                    "r": int(r_h[row]),
+                    "batch_size": len(active),
+                }
+                if sub_keys is not None:
+                    stats["subexprs"] = [
+                        (key, _compact_u32(sub[row]))
+                        for key, sub in zip(sub_keys[qi], subs_h)
+                    ]
+                results[qi] = (_compact_u32(root_h[row]), stats)
+            if not rerun:
+                return results  # type: ignore[return-value]
+            active = rerun
+            cap = total  # rare path: ONE re-run where no node can truncate
+            EXEC_COUNTERS.bump("expr_rerun_calls")
+            handles, ready = issue(active, cap)  # the collecting thread's stream
+
+    return PendingBatch(n_queries=len(ordered), handles=first_handles,
+                        ready=first_ready, _collect=collect)
+
+
+def intersect_expr_batch(
+    queries: Sequence[Sequence[DeviceSet]],
+    eshape,
+    capacity: Optional[int] = None,
+    sub_keys: Optional[Sequence[Sequence]] = None,
+    device: Device = "cuda",
+) -> List[Tuple[np.ndarray, Dict]]:
+    """A same-shape expression bucket, synchronously (dispatch + collect):
+    [(sorted uint32 values, stats), ...] in query order."""
+    return dispatch_expr_batch(queries, eshape, capacity=capacity,
+                               sub_keys=sub_keys, device=device).collect()
+
+
 # -- count-only suggestion path ----------------------------------------------
 #
 # A suggest bucket is B (probe, candidates) rows of one shape class: every
@@ -731,6 +952,26 @@ def _warm_rerun(row: Sequence[DeviceSet], capacity: Optional[int],
         EXEC_COUNTERS.bump("warm_reruns")
 
 
+def _warm_expr_rerun(row: Sequence[DeviceSet], eshape,
+                     capacity: Optional[int], b_tiers: Sequence[int],
+                     device: Device) -> None:
+    """The expression form of :func:`_warm_rerun`: run ``row`` at the total
+    leaf width (an overflowing query's re-run capacity) at each tier of
+    ``b_tiers`` whose re-run specialization is still unseen, bumping
+    ``warm_reruns`` per pass."""
+    dev = resolve_device(device)
+    ts, gmaxes = _expr_signature(row)
+    total = expr_total_width(ts, gmaxes)
+    if min(capacity or default_expr_capacity(ts, gmaxes), total) >= total:
+        return  # no re-run: the first pass already runs at the total width
+    for b in b_tiers:
+        if _seen_specialization(_expr_spec(dev, eshape, ts, gmaxes, total, b)):
+            continue
+        intersect_expr_batch([list(row)] * b, eshape, capacity=total,
+                             device=device)
+        EXEC_COUNTERS.bump("warm_reruns")
+
+
 def warm_from_plans(plans, get_set: Callable[[object], DeviceSet],
                     top_k: int = 8, b_tiers: Sequence[int] = (1,),
                     device: Device = "cuda") -> List:
@@ -738,11 +979,13 @@ def warm_from_plans(plans, get_set: Callable[[object], DeviceSet],
     shape signatures of ``plans`` (``exec.plan.QueryPlan``s), take the
     ``top_k`` most frequent, and run the first plan of each at every tier
     of ``b_tiers``, at the signature's own capacity tier (a learned one
-    under an adaptive model), then at capacity G where that re-run's
-    specialization is still unseen (:func:`_warm_rerun`, the port's
-    addition).  Count signatures (``sig.cands > 0``) run the count pass at
-    their top-K tier.  ``get_set`` maps a planned term to its DeviceSet.
-    Returns the warmed signatures, most frequent first."""
+    under an adaptive model), then at the re-run's capacity where that
+    specialization is still unseen (:func:`_warm_rerun` /
+    :func:`_warm_expr_rerun`, the port's addition).  Expression signatures
+    (``sig.eshape`` set) run the expression pass on the plan's leaves in
+    traversal order; count signatures (``sig.cands > 0``) run the count
+    pass at their top-K tier.  ``get_set`` maps a planned term to its
+    DeviceSet.  Returns the warmed signatures, most frequent first."""
     from collections import Counter
 
     freq = Counter(p.sig for p in plans if p.algorithm == "device")
@@ -753,7 +996,16 @@ def warm_from_plans(plans, get_set: Callable[[object], DeviceSet],
     warmed = [sig for sig, _ in freq.most_common(top_k)]
     for sig in warmed:
         terms = rep_terms[sig]
-        if sig.cands > 0:
+        if sig.eshape is not None:
+            row = [get_set(t) for t in terms]
+            for b in b_tiers:
+                intersect_expr_batch([row] * b, sig.eshape,
+                                     capacity=sig.capacity_tier,
+                                     device=device)
+                EXEC_COUNTERS.bump("warm_executions")
+            _warm_expr_rerun(row, sig.eshape, sig.capacity_tier, b_tiers,
+                             device)
+        elif sig.cands > 0:
             row = (get_set(terms[0]), [get_set(t) for t in terms[1:]])
             for b in b_tiers:
                 intersect_count_batch([row] * b, sig.capacity_tier,

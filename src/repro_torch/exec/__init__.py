@@ -1,4 +1,6 @@
-"""Batched multi-query execution: :mod:`plan` normalizes raw queries into
+"""Batched multi-query execution: :mod:`expr` holds the ∪/∩/∖ expression
+algebra (canonicalizer, parser, numpy oracle), :mod:`plan` normalizes raw
+queries (term lists, expressions, expression strings) into
 shape-keyed plans, :mod:`batch` groups plans by signature and runs one pass
 per bucket through ``core.engine`` (:func:`~repro_torch.exec.batch.
 dispatch_bucket` / :class:`~repro_torch.exec.batch.InFlightBucket` split a
@@ -6,6 +8,10 @@ bucket into dispatch now and collect later, which the async front end
 overlaps), :mod:`cache` remembers the results of repeated normalized plans,
 and :mod:`adaptive` learns capacity tiers from observed survivor counts and
 flush budgets from observed arrival rates."""
+from .expr import (
+    EMPTY, And, Diff, Expr, Or, Term, canonicalize, eval_host, expr_key,
+    expr_shape, flat_terms, leaf_terms, parse, subexpr_keys,
+)
 from .plan import QueryPlan, ShapeSig, plan_query, plan_suggest
 from .adaptive import AdaptiveDeadline, CapacityModel, adaptive_key
 from .batch import (
@@ -19,6 +25,20 @@ from .batch import (
 from .cache import ResultCache
 
 __all__ = [
+    "EMPTY",
+    "And",
+    "Diff",
+    "Expr",
+    "Or",
+    "Term",
+    "canonicalize",
+    "eval_host",
+    "expr_key",
+    "expr_shape",
+    "flat_terms",
+    "leaf_terms",
+    "parse",
+    "subexpr_keys",
     "QueryPlan",
     "ShapeSig",
     "plan_query",

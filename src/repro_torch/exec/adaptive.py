@@ -23,8 +23,10 @@ Keys: both are keyed by :func:`adaptive_key`, the signature minus its
 capacity tier (the tier is the model's output).  The key tuple keeps the
 JAX package's layout, ``(k, ts, gmaxes, shards, replicas, cands,
 eshape)``, so learned tiers compare equal across the two packages; the
-port's signatures are single-device flat conjunctions, so shards and
-replicas are 1 and ``eshape`` is ``None``.
+port's signatures are single-device, so shards and replicas are 1, and
+``eshape`` is ``None`` for flat conjunctions.  Expression signatures learn
+against the DAG's dense widths: the prior is ``default_expr_capacity``
+and the ceiling ``expr_total_width``.
 
 Thread-safety: state is lock-protected; change hooks fire outside the
 lock (they re-plan and run device work).
@@ -36,7 +38,9 @@ import time
 from collections import deque
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
-from ..core.engine import EXEC_COUNTERS, default_capacity
+from ..core.engine import (
+    EXEC_COUNTERS, default_capacity, default_expr_capacity, expr_total_width,
+)
 
 __all__ = ["adaptive_key", "adaptive_key_parts", "CapacityModel",
            "AdaptiveDeadline"]
@@ -204,12 +208,13 @@ class CapacityModel:
             return
         key = adaptive_key(sig)
         if getattr(sig, "eshape", None) is not None:
-            # expression buckets size against the DAG's dense widths, which
-            # come with the port's expression path
-            raise NotImplementedError(
-                "expression signatures are not ported yet")
-        static_cap = default_capacity(sig.ts)
-        g = 1 << sig.ts[-1]
+            # expression buckets: the static prior and the hard ceiling are
+            # the DAG's dense widths, not the largest leaf's group count
+            static_cap = default_expr_capacity(sig.ts, sig.gmaxes)
+            g = expr_total_width(sig.ts, sig.gmaxes)
+        else:
+            static_cap = default_capacity(sig.ts)
+            g = 1 << sig.ts[-1]
         now = self.clock()
         changes: List[Tuple[Hashable, int, int]] = []
         with self._lock:

@@ -6,7 +6,12 @@ the bucket's rows stack into shape-uniform ``(B, …)`` tensors.  Queries
 whose survivor count exceeds the capacity tier are re-run once, as a
 subset, at full capacity.  A suggest bucket (``sig.cands > 0``) runs the
 count-only pass instead (``core.engine.dispatch_count_batch``): no survivor
-buffer and no re-run, and ``sig.capacity_tier`` is its top-K tier.
+buffer and no re-run, and ``sig.capacity_tier`` is its top-K tier.  An
+expression bucket (``sig.eshape`` set) runs the expression pass
+(``core.engine.dispatch_expr_batch``): rows in the plan's leaf traversal
+order, never re-sorted, each query with its canonical subexpression keys,
+so the collected stats carry the intermediate node values for the
+subexpression cache.
 
 Per-query timing is amortized: each result's stats carry ``batch_us`` (the
 bucket's dispatch-to-collect wall time divided by bucket size).
@@ -38,9 +43,10 @@ import numpy as np
 
 from ..core.engine import (
     EXEC_COUNTERS, DeviceSet, PendingBatch, dispatch_count_batch,
-    dispatch_device_batch,
+    dispatch_device_batch, dispatch_expr_batch,
 )
 from ..device import Device
+from .expr import subexpr_keys
 from .plan import QueryPlan, ShapeSig, plan_query
 
 __all__ = [
@@ -157,11 +163,19 @@ def dispatch_bucket(
     """Enqueue ONE same-signature bucket without blocking; ``get_set``
     resolves a planned term to its DeviceSet.  Bumps
     ``inflight_dispatches``; the pipeline bumps ``batch_calls`` (a suggest
-    bucket's count pass bumps ``count_calls``).  A dispatch that raises
-    bumps ``dispatch_failures``.  ``capacity_model`` is fed at collect."""
+    bucket's count pass bumps ``count_calls``, an expression bucket's pass
+    ``expr_calls``).  A dispatch that raises bumps ``dispatch_failures``.
+    ``capacity_model`` is fed at collect."""
     t0 = time.perf_counter()
     try:
-        if sig.cands > 0:
+        if sig.eshape is not None:
+            # plan.terms IS the leaf traversal order: never re-sorted
+            rows = [[get_set(t) for t in plan.terms] for _, plan in items]
+            pending = dispatch_expr_batch(
+                rows, sig.eshape, capacity=sig.capacity_tier,
+                sub_keys=[subexpr_keys(plan.expr) for _, plan in items],
+                device=device)
+        elif sig.cands > 0:
             # plan.terms is (probe, *candidates), candidates ascending: the
             # order the count pass's tie-break reads as "smallest id first"
             rows = [(get_set(plan.terms[0]),

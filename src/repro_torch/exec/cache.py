@@ -12,12 +12,21 @@ Index mutation safety: owners of a mutable index bump the cache's
 serving layer registers it as a ``BatchedEngine.on_mutate`` hook); entries
 stamped with an older generation read as misses and are evicted lazily.
 Stored values are treated as immutable.
+
+Subexpression entries (:meth:`ResultCache.get_sub` / :meth:`ResultCache.
+put_sub`) hold the values of canonical subexpressions, keyed on raw
+``exec.expr.expr_key`` tuples under a ``"subexpr"`` namespace, so a subtree
+shared across queries (``a∪b`` inside both ``(a∪b)∩c`` and ``(a∪b)∖d``)
+resolves on the host without device work.  They share the LRU budget and
+the generation stamps with plan entries and count apart
+(``subexpr_cache_hits`` / ``subexpr_cache_misses`` /
+``subexpr_cache_stores``).
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 from ..core.engine import EXEC_COUNTERS
 from .plan import QueryPlan
@@ -76,6 +85,50 @@ class ResultCache:
                 return  # computed against a mutated-away index: never cache
             self._entries[key] = (stamp, value)
             self._entries.move_to_end(key)
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+
+    # -- subexpression entries: same LRU and generations, own counters -----
+
+    @staticmethod
+    def _sub_key(key) -> Tuple[str, Any]:
+        # a namespace, so a sub-entry never collides with a plan entry
+        return ("subexpr", key)
+
+    def get_sub(self, key) -> Optional[Any]:
+        """The cached value of canonical subexpression ``key`` (a raw
+        ``expr_key`` tuple), or None.  Counts ``subexpr_cache_hits`` /
+        ``subexpr_cache_misses``; stale entries evict as misses."""
+        if self.capacity <= 0:
+            return None
+        skey = self._sub_key(key)
+        with self._lock:
+            if skey in self._entries:
+                gen, value = self._entries[skey]
+                if gen != self.generation:
+                    del self._entries[skey]
+                else:
+                    self._entries.move_to_end(skey)
+                    EXEC_COUNTERS.bump("subexpr_cache_hits")
+                    return value
+            EXEC_COUNTERS.bump("subexpr_cache_misses")
+            return None
+
+    def put_sub(self, key, value: Any,
+                generation: Optional[int] = None) -> None:
+        """Insert or refresh a canonical subexpression's value, under the
+        generation contract of :meth:`put`.  Counts
+        ``subexpr_cache_stores``."""
+        if self.capacity <= 0:
+            return
+        skey = self._sub_key(key)
+        with self._lock:
+            stamp = self.generation if generation is None else generation
+            if stamp != self.generation:
+                return
+            self._entries[skey] = (stamp, value)
+            self._entries.move_to_end(skey)
+            EXEC_COUNTERS.bump("subexpr_cache_stores")
             while len(self._entries) > self.capacity:
                 self._entries.popitem(last=False)
 

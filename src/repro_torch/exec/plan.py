@@ -1,6 +1,8 @@
 """Query planner: normalize a raw query into a shape-keyed QueryPlan.
 
-A query arrives as a bag of terms.  Planning does, in order:
+A query arrives as a bag of terms, an ``exec.expr.Expr`` over ∩/∪/∖, or
+a ``exec.expr.parse`` string (``"(1|2)&3-4"``).  Planning a bag of terms
+does, in order:
 
   1. **Normalize** — drop duplicate terms (``[t, t]`` is ``[t]``), resolve
      terms against the index, and sort the survivors by ``(t, n, term)`` so
@@ -13,9 +15,14 @@ A query arrives as a bag of terms.  Planning does, in order:
      ``ShapeSig(k, ts, gmaxes, capacity_tier)``.  Two queries with the same
      signature stack into the same ``(B, …)`` pass.
 
+An expression is canonicalized first (``exec.expr.canonicalize``).  One that
+normalizes to a bare conjunction (``a & b``, ``(a&b)&a``) plans exactly as
+its term list; any other becomes a device plan with ``sig.eshape`` set and
+``plan.expr`` holding the canonical DAG.
+
 The planner reads only per-set metadata (``t``, ``gmax``, ``n``), so it works
 the same over host ``PrefixIndex`` objects and device ``DeviceSet`` mirrors,
-and it equals the JAX package's planner on flat conjunctions.
+and it equals the JAX package's single-device planner.
 
 :func:`plan_suggest` plans the count-only suggestion path: one probe against
 one ``(t, gmax_tier)`` class of candidates, keyed by a signature with
@@ -27,9 +34,14 @@ import dataclasses
 from typing import Mapping, Optional, Sequence, Tuple
 
 from ..core.engine import (
-    default_capacity, default_k_tier, gmax_tier, set_sort_key,
+    default_capacity, default_expr_capacity, default_k_tier, gmax_tier,
+    set_sort_key,
 )
 from .adaptive import adaptive_key_parts
+from .expr import (
+    EMPTY, Expr, canonicalize, expr_key, expr_shape, flat_terms, leaf_terms,
+    parse,
+)
 
 __all__ = ["ShapeSig", "QueryPlan", "plan_query", "plan_suggest"]
 
@@ -44,6 +56,11 @@ class ShapeSig:
     is direction-aware) and ``capacity_tier`` holds the top-K selection
     tier (``core.engine.default_k_tier``): the count path has no survivor
     buffer.
+
+    ``eshape`` is ``None`` for flat conjunctions (their signatures are
+    unchanged) and the leaf-erased expression shape
+    (``exec.expr.expr_shape``) for expression plans, whose ``ts`` /
+    ``gmaxes`` follow the expression's leaf traversal order, unsorted.
     """
 
     k: int
@@ -51,54 +68,75 @@ class ShapeSig:
     gmaxes: Tuple[int, ...]
     capacity_tier: int
     cands: int = 0
+    eshape: Optional[Tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
     """A normalized, routed query.
 
-    ``terms`` are deduped and (t, n, term)-sorted; ``algorithm`` is one of
-    ``"device"`` (bucketed batch path), ``"hashbin"`` / ``"host"`` (host
-    execution), or ``"empty"`` (a term has no postings).  ``sig`` is set iff
-    ``algorithm == "device"``.
+    ``terms`` are deduped and (t, n, term)-sorted for flat conjunctions,
+    and the canonical expression's leaf terms (traversal order, with
+    repeats) when ``expr`` is set; ``algorithm`` is one of ``"device"``
+    (bucketed batch path), ``"hashbin"`` / ``"host"`` (host execution), or
+    ``"empty"`` (a term has no postings, or the expression canonicalizes
+    to ∅).  ``sig`` is set iff ``algorithm == "device"``.  ``expr`` is the
+    canonical :class:`~repro_torch.exec.expr.Expr` of an expression plan,
+    ``None`` for flat conjunctions (and for expressions that normalize to
+    one).
     """
 
     terms: Tuple
     algorithm: str
     sig: Optional[ShapeSig] = None
+    expr: Optional[Expr] = None
 
     def cache_key(self) -> Tuple[str, Tuple]:
         """Result-cache key: every surface form of one conjunction (``[a,
-        b]``, ``[b, a]``, ``[a, a, b]``) normalizes to the same ``terms``.
-        The routing algorithm is part of the key so an entry never outlives
-        a routing change.  Suggest plans key apart, with their selection
+        b]``, ``[b, a]``, ``[a, a, b]``) normalizes to the same ``terms``,
+        and expression plans key on ``expr_key`` of the canonical
+        expression, so ``(b|a)&c`` and ``c&(a|b)`` share an entry.  The
+        routing algorithm is part of the key so an entry never outlives a
+        routing change.  Suggest plans key apart, with their selection
         tier, so ``suggest(id, 8)`` never serves ``suggest(id, 64)``."""
         if self.sig is not None and self.sig.cands:
             return ("suggest", (self.terms, self.sig.capacity_tier))
+        if self.expr is not None:
+            return (self.algorithm, expr_key(self.expr))
         return (self.algorithm, self.terms)
 
     def query_spec(self):
-        """What to re-plan to reproduce this plan: the flat term list.  The
-        async flusher re-plans it at dispatch to find plans an index
-        mutation made stale."""
-        return list(self.terms)
+        """What to re-plan to reproduce this plan: the canonical expression
+        when one is set, else the flat term list.  The async flusher
+        re-plans it at dispatch to find plans an index mutation made
+        stale."""
+        return self.expr if self.expr is not None else list(self.terms)
 
 
 def plan_query(
     index: Mapping,
-    terms: Sequence,
+    terms,
     hashbin_ratio: float = 100.0,
     capacity_model=None,
 ) -> QueryPlan:
     """Plan one query against ``index`` (term -> set with .t/.gmax/.n).
 
-    Pure metadata work: touches no arrays and runs no device code.  For
-    device-routed plans ``sig.gmaxes`` are power-of-two tiers and
-    ``sig.capacity_tier`` is ``default_capacity(ts)``, the static shapes
-    the executor will stack; with a ``capacity_model``
-    (``exec.adaptive.CapacityModel``) it is the model's learned tier for
-    the signature's adaptive key, the static rule while the key is cold.
+    ``terms`` is a term sequence (a flat conjunction), an
+    :class:`~repro_torch.exec.expr.Expr` or a
+    :func:`~repro_torch.exec.expr.parse` string.  Pure metadata work:
+    touches no arrays and runs no device code.  For device-routed plans
+    ``sig.gmaxes`` are power-of-two tiers and ``sig.capacity_tier`` is
+    ``default_capacity(ts)`` (``default_expr_capacity(ts, gmaxes)`` for an
+    expression), the static shapes the executor will stack; with a
+    ``capacity_model`` (``exec.adaptive.CapacityModel``) it is the model's
+    learned tier for the signature's adaptive key, the static rule while
+    the key is cold.
     """
+    if isinstance(terms, str):
+        terms = parse(terms)
+    if isinstance(terms, Expr):
+        return _plan_expr(index, terms, hashbin_ratio=hashbin_ratio,
+                          capacity_model=capacity_model)
     uniq = []
     seen = set()
     for term in terms:
@@ -122,6 +160,35 @@ def plan_query(
             adaptive_key_parts(len(uniq), ts, gmaxes, 1), capacity)
     sig = ShapeSig(k=len(uniq), ts=ts, gmaxes=gmaxes, capacity_tier=capacity)
     return QueryPlan(terms=tuple(uniq), algorithm="device", sig=sig)
+
+
+def _plan_expr(index: Mapping, raw: Expr, hashbin_ratio: float,
+               capacity_model) -> QueryPlan:
+    """Expression arm of :func:`plan_query`.  Canonicalization runs against
+    the index (unknown terms become ∅ and propagate), so every leaf of a
+    plan resolves.  The §3.4 HashBin policy never applies to an expression
+    (it is a two-term conjunction rule)."""
+    can = canonicalize(raw, index)
+    if can is EMPTY:
+        return QueryPlan(terms=(), algorithm="empty")
+    flat = flat_terms(can)
+    if flat is not None:
+        # a bare conjunction after normalization: plan the term list, so
+        # the plan (and its cache entry) equals the term list's
+        return plan_query(index, list(flat), hashbin_ratio=hashbin_ratio,
+                          capacity_model=capacity_model)
+    leaves = leaf_terms(can)
+    ts = tuple(index[t].t for t in leaves)
+    gmaxes = tuple(gmax_tier(index[t].gmax) for t in leaves)
+    eshape = expr_shape(can)
+    capacity = default_expr_capacity(ts, gmaxes)
+    if capacity_model is not None:
+        capacity = capacity_model.capacity_for(
+            adaptive_key_parts(len(leaves), ts, gmaxes, 1, eshape=eshape),
+            capacity)
+    sig = ShapeSig(k=len(leaves), ts=ts, gmaxes=gmaxes,
+                   capacity_tier=capacity, eshape=eshape)
+    return QueryPlan(terms=leaves, algorithm="device", sig=sig, expr=can)
 
 
 def plan_suggest(

@@ -2,16 +2,21 @@
 
 Builds the pre-processed index (one PrefixIndex per term posting list,
 host-side numpy), mirrors every list to the device, and serves conjunctive
-AND-queries: every request batch is **planned** (terms deduped, resolved,
-routed per the paper's §3.4 online policy — HashBin on the host when the
-size ratio is extreme, RanGroupScan on the device otherwise), **bucketed**
-by static shape signature, **executed** one pass per bucket, and the
-results **scattered** back in request order.  Single-query ``query`` is a
-batch of one.
+AND-queries and boolean ∪/∩/∖ expressions: every request batch is
+**planned** (terms deduped, resolved, routed per the paper's §3.4 online
+policy — HashBin on the host when the size ratio is extreme, RanGroupScan
+on the device otherwise; an expression is canonicalized, and one that is
+not a bare conjunction runs the expression pass on the device),
+**bucketed** by static shape signature, **executed** one pass per bucket,
+and the results **scattered** back in request order.  Single-query
+``query`` is a batch of one.  A query is a term list, an
+``exec.expr.Expr`` or a ``parse`` string (``"(1|2)&3-4"``).
 
 An optional LRU result cache keyed on the normalized plan answers repeated
-conjunctions without touching the device, and :meth:`SearchEngine.warm`
-runs the hot shape signatures of a sample workload before live traffic.
+queries without touching the device; it also remembers the values of
+canonical subexpressions, so an expression sharing a cached subtree is
+merged on the host (``expr/subcache``).  :meth:`SearchEngine.warm` runs
+the hot shape signatures of a sample workload before live traffic.
 
 Two front ends share that pipeline: :class:`SearchEngine`, synchronous (the
 caller hands over a batch and blocks for it), and
@@ -47,6 +52,9 @@ from ..exec.adaptive import AdaptiveDeadline, CapacityModel, adaptive_key
 from ..exec.batch import InFlightBucket, dispatch_bucket, execute_plan_buckets
 from ..exec.cache import ResultCache
 from ..exec.candidates import CandidateIndex
+from ..exec.expr import (
+    And, Diff, Expr, Or, Term, canonicalize, eval_host, expr_key,
+)
 from ..exec.plan import QueryPlan, ShapeSig, plan_query, plan_suggest
 from .admission import AdmissionQueue, Ticket
 
@@ -62,16 +70,33 @@ class QueryResult:
     ``latency_us`` is per-query wall time for host paths and the amortized
     ``batch_us`` (bucket wall / bucket size) for device buckets;
     ``algorithm`` names the executed path (``"rangroupscan/device"``,
+    ``"expr/device"``, ``"expr/subcache"``, ``"expr/host"``,
     ``"hashbin"``, ``"empty"``); device stats include ``r``,
-    ``tuples_survived``, ``capacity``, ``batch_size``; cache hits carry
-    ``{"cached": True}``.  ``doc_ids`` may be shared with the result cache —
-    treat it as immutable.
+    ``tuples_survived``, ``capacity``, ``batch_size`` (expression buckets
+    add ``expr_width`` and ``subexprs``); cache hits carry ``{"cached":
+    True}``.  ``doc_ids`` may be shared with the result cache — treat it as
+    immutable.
     """
 
     doc_ids: np.ndarray
     latency_us: float
     algorithm: str
     stats: Dict
+
+
+def _union_sorted(arrays: Sequence[np.ndarray]) -> np.ndarray:
+    """Sorted union of sorted unique arrays: ``np.union1d`` without its
+    ``np.unique``."""
+    out = np.sort(np.concatenate(arrays))
+    if len(out) < 2:
+        return out
+    return out[np.concatenate(([True], out[1:] != out[:-1]))]
+
+
+def _device_result_name(stats: Dict) -> str:
+    """Executed-path label of a device bucket's result: expression buckets
+    stamp ``expr_width`` in their stats."""
+    return "expr/device" if "expr_width" in stats else "rangroupscan/device"
 
 
 class SearchEngine:
@@ -124,7 +149,9 @@ class SearchEngine:
 
     def plan(self, terms) -> QueryPlan:
         """Normalize and route one query (dedup, §3.4 policy, shape sig,
-        learned capacity tier when an adaptive model is attached)."""
+        learned capacity tier when an adaptive model is attached).
+        ``terms`` is a term sequence, an ``exec.expr.Expr`` or a ``parse``
+        string."""
         return plan_query(self.index, terms, hashbin_ratio=self.hashbin_ratio,
                           capacity_model=self.capacity_model)
 
@@ -148,7 +175,7 @@ class SearchEngine:
         if plan.sig not in self.warmed_sigs:
             self.warmed_sigs.append(plan.sig)
 
-    def warm(self, sample_queries: Sequence[Sequence[int]], top_k: int = 8,
+    def warm(self, sample_queries: Sequence, top_k: int = 8,
              b_tiers: Sequence[int] = (1,)) -> List[ShapeSig]:
         """Run the hot shape signatures of a sample workload before live
         traffic: plans ``sample_queries``, and runs one representative of
@@ -189,20 +216,100 @@ class SearchEngine:
 
     def _cached_result(self, plan: QueryPlan) -> Optional[QueryResult]:
         """Result-cache lookup; ``"empty"`` plans bypass the cache (no work
-        to save, and their misses would skew hit-rate telemetry)."""
+        to save, and their misses would skew hit-rate telemetry).
+
+        An expression plan whose root misses gets a second chance: if any
+        composite subtree of its canonical DAG is cached, the rest merges
+        on the host from cached subtree values and raw postings (no device
+        work, one ``subexpr_host_merges``), and the root is stored so the
+        next identical query is a plain hit."""
         if plan.algorithm == "empty":
             return None
         hit = self.cache.get(plan)
-        if hit is None:
+        if hit is not None:
+            doc_ids, algorithm = hit
+            return QueryResult(doc_ids, 0.0, algorithm,
+                               {"cached": True, "r": len(doc_ids)})
+        if plan.expr is not None:
+            doc_ids = self._resolve_expr_from_subcache(plan.expr)
+            if doc_ids is not None:
+                EXEC_COUNTERS.bump("subexpr_host_merges")
+                result = QueryResult(
+                    doc_ids, 0.0, "expr/subcache",
+                    {"cached": True, "r": len(doc_ids),
+                     "subexpr_merge": True})
+                self._store(plan, result)
+                return result
+        return None
+
+    def _resolve_expr_from_subcache(self, e: Expr) -> Optional[np.ndarray]:
+        """Answer a canonical expression from cached subexpression values
+        and raw leaf postings, without the device, or return None.
+
+        Probes every composite node once (each probe counts a
+        ``subexpr_cache_hits`` / ``_misses``).  With no composite subtree
+        cached the query goes to the device untouched; with at least one,
+        uncached nodes merge on the host with the oracle's semantics, so
+        the answer is the device's bit for bit.  Every operand is a sorted
+        unique array (a leaf's postings are unique by construction), so the
+        merges sort and never call ``np.unique``, which recent numpy
+        releases run through a hash table, seconds on lists of millions."""
+        probes: Dict[Tuple, Optional[np.ndarray]] = {}
+
+        def probe(node: Expr) -> Optional[np.ndarray]:
+            key = expr_key(node)
+            if key not in probes:
+                probes[key] = self.cache.get_sub(key)
+            return probes[key]
+
+        def any_cached(node: Expr) -> bool:
+            if isinstance(node, Term):
+                return False
+            if probe(node) is not None:
+                return True
+            if isinstance(node, Diff):
+                return any_cached(node.left) or any_cached(node.right)
+            return any(any_cached(c) for c in node.children)
+
+        if not any_cached(e):
             return None
-        doc_ids, algorithm = hit
-        return QueryResult(doc_ids, 0.0, algorithm,
-                           {"cached": True, "r": len(doc_ids)})
+        memo: Dict[Tuple, np.ndarray] = {}
+
+        def merge(node: Expr) -> np.ndarray:
+            key = expr_key(node)
+            if key in memo:
+                return memo[key]
+            if isinstance(node, Term):
+                out = np.sort(self.index[node.term].values)
+            else:
+                cached = probe(node)
+                if cached is not None:
+                    out = cached
+                elif isinstance(node, And):
+                    out = merge(node.children[0])
+                    for c in node.children[1:]:
+                        out = np.intersect1d(out, merge(c), assume_unique=True)
+                elif isinstance(node, Or):
+                    out = _union_sorted([merge(c) for c in node.children])
+                else:
+                    out = np.setdiff1d(merge(node.left), merge(node.right),
+                                       assume_unique=True)
+            out = out.astype(np.uint32, copy=False)
+            memo[key] = out
+            return out
+
+        return merge(e)
 
     def _execute_host_plan(self, plan: QueryPlan) -> QueryResult:
-        """Run one non-device plan (``empty`` / ``hashbin``)."""
+        """Run one non-device plan (``empty`` / ``hashbin`` / an expression
+        planned for the host, ``expr/host``)."""
         if plan.algorithm == "empty":
             return QueryResult(np.empty(0, np.uint32), 0.0, "empty", {})
+        if plan.expr is not None:
+            t0 = time.perf_counter()
+            res = eval_host(plan.expr, lambda t: self.index[t].values)
+            dt = (time.perf_counter() - t0) * 1e6
+            return QueryResult(res, dt, "expr/host", {"r": len(res)})
         if plan.algorithm != "hashbin":
             raise ValueError(f"no host path for {plan.algorithm!r}")
         a, b = (self.index[t] for t in plan.terms)
@@ -211,18 +318,21 @@ class SearchEngine:
         dt = (time.perf_counter() - t0) * 1e6
         return QueryResult(res, dt, "hashbin", stats.__dict__)
 
-    def query(self, terms: Sequence[int]) -> QueryResult:
-        """Serve one query — a batch of one through :meth:`query_batch`."""
+    def query(self, terms) -> QueryResult:
+        """Serve one query (a term list, an ``Expr`` or a ``parse``
+        string) — a batch of one through :meth:`query_batch`."""
         return self.query_batch([terms])[0]
 
-    def query_batch(self, queries: Sequence[Sequence[int]]) -> List[QueryResult]:
+    def query_batch(self, queries: Sequence) -> List[QueryResult]:
         """Plan -> bucket -> execute -> scatter (request order preserved).
 
+        Each query is a term list, an ``Expr`` or a ``parse`` string.
         Device-routed plans are grouped by shape signature and each bucket
         runs as ONE pass (plus rare overflow re-runs), each bumping
-        ``EXEC_COUNTERS["batch_calls"]``.  HashBin plans run per query on
-        the host.  Cache hits are answered in place; misses are inserted
-        after execution.
+        ``EXEC_COUNTERS["batch_calls"]`` (``"expr_calls"`` for expression
+        buckets).  HashBin plans run per query on the host.  Cache hits
+        (and expressions merged from cached subexpressions) are answered in
+        place; misses are inserted after execution.
         """
         gen = self.cache.generation  # results compute against THIS index
         plans = [self.plan(q) for q in queries]
@@ -244,9 +354,8 @@ class SearchEngine:
                 capacity_model=self.capacity_model)
             for i, plan in device_plans:
                 res, stats = by_index[i]
-                # the port's one device path: single device, flat conjunctions
                 results[i] = QueryResult(res, stats.get("batch_us", 0.0),
-                                         "rangroupscan/device", stats)
+                                         _device_result_name(stats), stats)
                 self._store(plan, results[i], generation=gen)
         return results  # type: ignore[return-value]
 
@@ -254,11 +363,28 @@ class SearchEngine:
                generation: Optional[int] = None) -> None:
         """Cache a computed result.  ``generation`` is the cache generation
         captured before execution started — the cache rejects the entry if
-        a mutation landed in between."""
+        a mutation landed in between.
+
+        A computed (not cached) result also feeds the subexpression cache:
+        an expression bucket's intermediate node values
+        (``stats["subexprs"]``), and the root value under its canonical
+        expression key (for a flat conjunction, the key of its canonical
+        ``And``), so any finished query can later resolve as a shared
+        subtree of a bigger expression."""
         if plan.algorithm == "empty":
             return
         self.cache.put(plan, (result.doc_ids, result.algorithm),
                        generation=generation)
+        if self.cache.capacity <= 0 or result.stats.get("cached"):
+            return
+        for key, value in result.stats.get("subexprs", ()):
+            self.cache.put_sub(key, value, generation=generation)
+        if plan.expr is not None:
+            root_key = expr_key(plan.expr)
+        else:
+            root_key = expr_key(canonicalize(
+                And(tuple(Term(t) for t in plan.terms)), self.index))
+        self.cache.put_sub(root_key, result.doc_ids, generation=generation)
 
 
 @dataclasses.dataclass
@@ -330,7 +456,7 @@ class AsyncSearchEngine(SearchEngine):
                  deadline_us: float = 2000.0, flush_tier: int = 64,
                  result_cache: int = 1024,
                  clock: Callable[[], float] = time.perf_counter,
-                 warm_queries: Optional[Sequence[Sequence[int]]] = None,
+                 warm_queries: Optional[Sequence] = None,
                  warm_top_k: int = 8,
                  warm_b_tiers: Optional[Sequence[int]] = None,
                  adaptive_deadline=False,
@@ -458,14 +584,17 @@ class AsyncSearchEngine(SearchEngine):
 
     # -- admission API ------------------------------------------------------
 
-    def submit(self, terms: Sequence[int],
+    def submit(self, terms,
                deadline_us: Optional[float] = None,
                arrival_at: Optional[float] = None) -> Ticket:
-        """Admit one query; returns a Ticket resolving to a QueryResult.
+        """Admit one query (a term list, an ``Expr`` or a ``parse``
+        string); returns a Ticket resolving to a QueryResult.
 
-        Empty, host-routed and cache-hit queries resolve before return;
-        device-routed ones when their bucket flushes (full tier, deadline
-        or ``drain``).  With the flusher running, submit only queues and
+        Empty, host-routed and cache-hit queries resolve before return, and
+        so does an expression merged from cached subexpressions (route
+        ``subcache``: ``algorithm`` ``"expr/subcache"``); device-routed ones
+        resolve when their bucket flushes (full tier, deadline or
+        ``drain``).  With the flusher running, submit only queues and
         wakes it.  ``arrival_at`` (engine-clock seconds) back-stamps the
         query's scheduled arrival, so an open-loop generator's lateness counts
         in the wait and the budget, on every path.
@@ -654,7 +783,7 @@ class AsyncSearchEngine(SearchEngine):
         for row, (ticket, plan) in enumerate(flight.entries):
             res, stats = by_row[row]
             result = QueryResult(res, stats.get("batch_us", 0.0),
-                                 "rangroupscan/device", stats)
+                                 _device_result_name(stats), stats)
             self._store(plan, result, generation=flight.generation)
             ticket.resolve(
                 result, wait_us=(flight.flush_at - ticket.submitted_at) * 1e6)

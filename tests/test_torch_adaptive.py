@@ -208,16 +208,21 @@ def test_overflow_saved_counter():
 
 
 def test_count_and_expression_signatures():
-    """Count buckets carry nothing to learn; expression buckets need the
-    expression path, which the port does not have yet."""
+    """Count buckets carry nothing to learn; expression buckets learn under
+    their own key (``eshape`` last), against the DAG's dense widths: 400
+    node values at margin 1.25 make a tier of 512, within [64, 2 * 2^9 *
+    8]."""
     model = CapacityModel(min_observations=1)
     count = ShapeSig(k=2, ts=(9, 9), gmaxes=(8, 8), capacity_tier=8, cands=4)
     model.observe_bucket(count, [{"tuples_survived": 400}])
     assert model.learned_tiers() == {}
     expr = MeshSig(k=2, ts=(9, 9), gmaxes=(8, 8), capacity_tier=128,
                    eshape=("and", 0, 1))
-    with pytest.raises(NotImplementedError):
-        model.observe_bucket(expr, [{"tuples_survived": 400}])
+    model.observe_bucket(expr, [{"tuples_survived": 400}])
+    assert model.learned_tiers() == {adaptive_key(expr): 512}
+    assert adaptive_key(expr)[-1] == ("and", 0, 1)
+    model.observe_bucket(expr, [{"tuples_survived": 1 << 20}])
+    assert model.capacity_for(adaptive_key(expr), 128) == 2 * (1 << 9) * 8
 
 
 # -- adaptive capacity through the serving stack ---------------------------------

@@ -454,6 +454,61 @@ def test_warming_differs_from_jax_only_by_the_rerun_pass():
         assert tval.stats[key] == jval.stats[key], key
 
 
+def test_expression_warming_differs_from_jax_only_by_the_rerun_pass():
+    """The expression form of the difference above.  ``(0|1|2)&3`` and
+    ``(4|5|6)&7`` share one signature; the representative's union holds
+    one list three times and fits its node buffers, the sibling's union of
+    three disjoint lists overflows and re-runs at the total leaf width.
+    Both packages run the same ``warm_executions``; the port adds one
+    ``warm_reruns`` pass at the total width per tier, so serving the
+    sibling then counts no ``expr_traces``, where the JAX package traces
+    its re-run once.  Answers and stats stay equal (tolerance 0)."""
+    from repro.core.engine import clear_exec_jit_cache
+    from repro.exec.expr import parse as jax_parse
+
+    rng = np.random.default_rng(11)
+
+    def draw(n):
+        return np.unique(rng.choice(1 << 20, size=n,
+                                    replace=False)).astype(np.uint32)
+
+    a, b, c, d, e = (draw(3000) for _ in range(5))
+    lists = {0: a, 1: a.copy(), 2: a.copy(), 3: c, 4: b, 5: d, 6: e,
+             7: c.copy()}
+    kw = dict(seed=3, result_cache=0, flush_tier=8, deadline_us=2000.0)
+    jeng = JaxAsyncSearchEngine(lists, use_device=True, **kw)
+    teng = AsyncSearchEngine(lists, device=CPU, **kw)
+    rep, sibling = "(0|1|2)&3", "(4|5|6)&7"
+    assert teng.plan(rep).sig == teng.plan(sibling).sig
+    assert teng.plan(rep).sig.eshape is not None
+    tiers = (1, 2)
+    out = {}
+    for name, eng, counters, clear, parse in (
+            ("jax", jeng, JAX_COUNTERS, clear_exec_jit_cache, jax_parse),
+            ("port", teng, EXEC_COUNTERS, clear_specializations, str)):
+        clear()
+        counters.reset()
+        eng.warm([parse(rep), parse(sibling)], top_k=2, b_tiers=tiers)
+        warm = dict(counters)
+        counters.reset()
+        ticket = eng.submit(parse(sibling))
+        eng.drain()
+        out[name] = (warm, dict(counters), ticket.value)
+    (jwarm, jserve, jval), (twarm, tserve, tval) = out["jax"], out["port"]
+    assert twarm["warm_executions"] == jwarm["warm_executions"] == len(tiers)
+    assert jwarm["expr_rerun_calls"] == twarm["expr_rerun_calls"] == 0
+    assert twarm["warm_reruns"] == len(tiers)
+    assert jserve["expr_rerun_calls"] == tserve["expr_rerun_calls"] == 1
+    assert jserve["expr_traces"] == 1
+    assert tserve["expr_traces"] == 0
+    assert tval.algorithm == jval.algorithm == "expr/device"
+    assert np.array_equal(tval.doc_ids, np.asarray(jval.doc_ids))
+    assert np.array_equal(tval.doc_ids, np.intersect1d(
+        np.union1d(np.union1d(b, d), e), c))
+    for key in DIFF_STATS + ("expr_width",):
+        assert tval.stats[key] == jval.stats[key], key
+
+
 def test_suggest_warm_leaves_zero_count_traces():
     rng = np.random.default_rng(5)
     corpus = {i: np.unique(rng.integers(0, 4000, size=int(n))).astype(np.uint32)

@@ -212,3 +212,98 @@ def test_submit_race_two_buckets_in_flight(postings, engine):
     for q, t in tickets:
         assert t.done
         assert np.array_equal(t.value.doc_ids, want[tuple(q)].doc_ids), q
+
+
+# -- expressions: a FakeClock script of parse strings through both packages ----
+
+class FakeClock:
+    """Injectable clock: tests advance time explicitly (seconds)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def shared_subtree_strings(terms, n_queries, seed):
+    """``benchmarks/fig_boolean_qps.py::shared_subtree_log`` as parse
+    strings over ``terms``: 3 union bases ``(t_2j | t_2j+1)``, each query
+    ``base & extra``, every third ``(base & extra) - cut``."""
+    rng = np.random.default_rng(seed)
+    bases = [f"({terms[2 * j]}|{terms[2 * j + 1]})" for j in range(3)]
+    extras = terms[6:]
+    log = []
+    for i in range(n_queries):
+        s = f"{bases[int(rng.integers(3))]}&{extras[int(rng.integers(len(extras)))]}"
+        if i % 3 == 2:
+            s = f"({s})-{extras[int(rng.integers(len(extras)))]}"
+        log.append(s)
+    return log
+
+
+EXPR_COUNTERS = ("tier_flushes", "deadline_flushes", "tickets_resolved",
+                 "deadline_violations", "expr_calls", "expr_rerun_calls",
+                 "batch_calls", "rerun_calls", "result_cache_hits",
+                 "result_cache_misses", "subexpr_cache_hits",
+                 "subexpr_cache_misses", "subexpr_cache_stores",
+                 "subexpr_host_merges")
+
+
+@pytest.mark.parametrize("cache", [0, 256])
+def test_fakeclock_expression_script_matches_jax(postings, engine, cache):
+    """Expressions (and two flat conjunctions written as expressions)
+    submitted as parse strings every 250 us, a pump every third arrival
+    and a drain: every ticket's doc ids, route, wait and stats, and the
+    flush, ticket, pass and (sub)cache counters equal the JAX
+    ``AsyncSearchEngine``'s.  With the cache on, later roots over a cached
+    union base resolve at submit from the subexpression cache."""
+    from repro.exec.expr import parse as jax_parse
+    from repro.serve.search import AsyncSearchEngine as JaxAsyncSearchEngine
+    from repro_torch.exec.expr import eval_host, parse
+
+    terms = [t for t in sorted(engine.index)
+             if 60 <= len(postings[t]) <= 160][:12]
+    assert len(terms) == 12
+    log = shared_subtree_strings(terms, 18, seed=5)
+    log[4:4] = [f"{terms[6]}&{terms[7]}", f"({terms[8]}&{terms[9]})&{terms[8]}"]
+    kw = dict(seed=3, deadline_us=2000.0, flush_tier=4, result_cache=cache)
+    out = {}
+    for name, cls, counters, parse_fn, extra in (
+            ("jax", JaxAsyncSearchEngine, JAX_COUNTERS, jax_parse,
+             {"use_device": True}),
+            ("port", AsyncSearchEngine, EXEC_COUNTERS, str, {"device": CPU})):
+        clk = FakeClock()
+        eng = cls(postings, clock=clk, **kw, **extra)
+        counters.reset()
+        tickets = []
+        for i, s in enumerate(log):
+            tickets.append(eng.submit(parse_fn(s)))
+            clk.t += 250e-6
+            if i % 3 == 2:
+                eng.pump()
+        clk.t += 600e-6
+        eng.pump()
+        eng.drain()
+        out[name] = (tickets, {k: counters[k] for k in EXPR_COUNTERS})
+    (jt, jc), (tt, tc) = out["jax"], out["port"]
+    assert tc == jc
+    routes = []
+    for s, p, j in zip(log, tt, jt):
+        assert p.done and j.done and p.error is None and j.error is None
+        pv, jv = p.value, j.value
+        assert np.array_equal(pv.doc_ids, np.asarray(jv.doc_ids)), s
+        assert np.array_equal(pv.doc_ids, eval_host(
+            parse(s), postings.__getitem__)), s
+        assert pv.algorithm == jv.algorithm and p.wait_us == j.wait_us
+        assert pv.stats.get("cached") == jv.stats.get("cached")
+        if not pv.stats.get("cached"):
+            for key in ("r", "tuples_survived", "capacity", "batch_size",
+                        "expr_width"):
+                assert pv.stats.get(key) == jv.stats.get(key), key
+        routes.append(pv.algorithm)
+    assert {"expr/device", "rangroupscan/device"} <= set(routes)
+    if cache:
+        assert "expr/subcache" in routes and tc["subexpr_host_merges"] >= 1
+    else:
+        assert tc["subexpr_cache_stores"] == 0
