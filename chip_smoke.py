@@ -114,6 +114,27 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    one host merge; prints the routes (device / subcache /
                    cache) and the mean submit time of each, the device
                    route split into expression and flat passes.
+ 11. sharded and 2-D — four logical shards on the one card
+               (``make_shard_mesh(4, devices=["cuda:0"] * 4)``: each
+               shard's mirror is a view of the card's mirror):
+               11a phase 4's log through ``SearchEngine(..., mesh=...)
+                   .query_batch``, every answer equal to phase 4's (the
+                   oracle's), sharded passes run; the planted pair at
+                   ``capacity_per_shard`` 16 re-runs exactly once;
+               11b the log's first 64 queries and the planted pair
+                   through ``AsyncSearchEngine(..., topology=
+                   make_topology(2, 2, devices=["cuda:0"] * 4))``, warmed
+                   at tiers 1-4, ``shard_min_g`` at the median group count
+                   so that 2-D passes and balancer-placed buckets both run,
+                   with no trace at serve time;
+               11c phase 7's first 64 probes at k 8 through
+                   ``SuggestEngine(..., mesh=..., shard_min_g=1)`` on phase
+                   7's preprocessed sets, against the scipy oracle;
+               11d phase 10's log through the sharded ``query_batch``,
+                   against numpy's set routines;
+               prints queries/s and probes/s sharded against
+               single-device, timed in turns on the card (a measurement,
+               not a check).
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -124,7 +145,10 @@ after warming), ``SuggestEngine.warm`` (phase 7), ``suggest_batch small
 sets`` (phase 8), ``AsyncSearchEngine.warm`` (9a), ``async 9a virtual
 clock``, ``async 9b flusher`` (its ``query_batch`` baseline excluded) and
 ``async 9c adaptive``, ``expression log`` (10a), ``AsyncSearchEngine.warm
-expressions`` and ``async 10b expressions``.  The last lines are the kernel
+expressions`` and ``async 10b expressions``, ``11a sharded query_batch``,
+``AsyncSearchEngine.warm 2x2``, ``async 11b 2x2``, ``11c sharded
+suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
+baselines excluded).  The last lines are the kernel
 table as JSON (each
 kernel's ``launches`` on its main path, phase 4 or 7, and
 ``launches_by_path``) and ``{"ok": true, "device": {...}}``.  ``--report``
@@ -195,6 +219,14 @@ EXPR_FLAT = 32               # zipf_query_log conjunctions mixed in
 EXPR_FORCED_CAP = 16         # 10a: a union base at capacity 16 must re-run
 EXPR_FLUSH_TIER = 1          # 10b: each submit flushes at once, so later
 EXPR_CACHE = 1024            # roots over a served base merge on the host
+
+# -- z-sharded and 2-D execution on one card (phase 11) ------------------------
+SHARDS = 4                   # 11a, 11c, 11d: make_shard_mesh(4) over the card
+LAYOUT_2D = (2, 2)           # 11b: make_topology(2, 2) over the card
+SHARDED_FORCED_CAP = 16      # 11a: the planted pair must re-run once
+MESH_QUERIES = 64            # 11b: phase 4's first 64 queries + the planted
+MESH_FLUSH_TIER = 4          # pair, warmed at tiers 1-4
+MESH_PROBES = 64             # 11c: phase 7's first 64 probes
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -968,7 +1000,8 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
     serve the Zipf probe log cached and uncached and a mixed-k batch, all
     against the oracle; profile a pass; check and time ``pair_count`` on
     the heaviest bucket.  Returns (pair_count launches on the path, its
-    launches while warming, kernel times)."""
+    launches while warming, kernel times, (engine, oracle, probe log)) —
+    phase 11 serves the same corpus sharded."""
     from repro_torch.core.engine import EXEC_COUNTERS, pow2_tiers
     from repro_torch.data.ingest import ingest_file, write_records
     from repro_torch.serve.search import SuggestEngine
@@ -1106,6 +1139,7 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
     for row in prof["top"][:8]:
         print(f"  {row['ms']:10.3f} ms  {row['calls']:6d}x  {row['name'][:90]}")
     timed = time_pair_count(torch, ref, count_block_cuda, buckets, works)
+    engine.cache.invalidate()
     report["suggest"] = {
         "sets": len(corpus), "elements": n_elems, "probes": len(log),
         "k": SUGGEST_K, "batch": SUGGEST_BATCH, "data_s": gen_s,
@@ -1124,7 +1158,7 @@ def run_suggest_slice(torch, ref, count_block_cuda, report):
         "warm": {"signatures": warmed, "s": warm_s, "counters": warm,
                  "launches": warm_launches},
     }
-    return launches, warm_launches, timed
+    return launches, warm_launches, timed, (engine, oracle, log)
 
 
 def make_small_corpus(seed: int = SEED, n_sets: int = SMALL_SETS,
@@ -1196,14 +1230,15 @@ class SimClock:
         return self.t
 
 
-def async_engine(base, device, **kw):
-    """An ``AsyncSearchEngine`` over ``base``'s index.  The PrefixIndexes
-    preprocessed in phase 4 are shared (preprocessing the 40.3M elements
-    again takes about a minute); the device mirrors are built anew."""
+def async_engine(base, device, cls=None, **kw):
+    """An ``AsyncSearchEngine`` (or another ``cls`` of search engine) over
+    ``base``'s index.  The PrefixIndexes preprocessed in phase 4 are shared
+    (preprocessing the 40.3M elements again takes about a minute); the
+    device mirrors are built anew."""
     from repro_torch.serve.search import AsyncSearchEngine
 
-    eng = AsyncSearchEngine({}, w=W_BITS, m=M_IMAGES, seed=SEED,
-                            device=device, **kw)
+    eng = (cls or AsyncSearchEngine)({}, w=W_BITS, m=M_IMAGES, seed=SEED,
+                                     device=device, **kw)
     for term, idx in base.index.items():
         eng.index[term] = idx
         eng.device.add(term, idx)
@@ -1719,7 +1754,8 @@ def run_boolean_expressions(torch, engine, postings, report,
     same log as parse strings through ``AsyncSearchEngine`` with the result
     cache on, after warming its signatures.  Returns each path's launches
     of the phase-1 and phase-2 kernels (counts set to 0 just before each
-    run, read just after it)."""
+    run, read just after it), and the log as served with its answers (for
+    phase 11)."""
     from repro_torch.core.engine import (
         EXEC_COUNTERS, expr_total_width, intersect_expr_batch,
     )
@@ -1945,6 +1981,269 @@ def run_boolean_expressions(torch, engine, postings, report,
     done("10b", t_part)
     out["launches_by_path"] = paths
     report["expressions"] = out
+    return paths, (served, answers)
+
+
+# -- phase 11: z-sharded and 2-D execution on one card --------------------------
+
+class EngineTimer:
+    """Wall seconds spent in one ``core.engine`` function while the timer is
+    on, and its calls (callers look the function up by name at each call,
+    so the wrapper sees them all)."""
+
+    def __init__(self, name: str):
+        self.name, self.s, self.calls = name, 0.0, 0
+
+    def __enter__(self):
+        from repro_torch.core import engine
+
+        self._engine, self._fn = engine, getattr(engine, self.name)
+
+        def timed_fn(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self._fn(*args, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(engine, self.name, timed_fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._engine, self.name, self._fn)
+
+
+def mesh_devices(device: str) -> list:
+    """The logical shard devices of phase 11: ``SHARDS`` repeats of the
+    card (``"cuda:0"``), or of the CPU in a rehearsal."""
+    return ["cuda:0" if device == "cuda" else device] * SHARDS
+
+
+def timed(sync, run):
+    """(result, wall s) of ``run()`` between two ``sync()``s."""
+    sync()
+    t0 = time.perf_counter()
+    result = run()
+    sync()
+    return result, time.perf_counter() - t0
+
+
+def run_sharded(torch, engine, results, main_log, planted, suggest,
+                expr_log, report, device="cuda") -> dict:
+    """Phase 11 on one card, every shard a view on it: 11a phase 4's log
+    through a sharded ``SearchEngine.query_batch`` (and the planted pair at
+    ``capacity_per_shard`` 16, one re-run), 11b the log's first
+    ``MESH_QUERIES`` through a warmed ``AsyncSearchEngine`` on a 2x2
+    topology, 11c phase 7's first ``MESH_PROBES`` probes through a sharded
+    ``SuggestEngine``, 11d phase 10's log through the sharded
+    ``query_batch``.  Answers must equal phase 4's (checked against the
+    oracle there), the scipy oracle and numpy's set routines.  Prints
+    queries/s and probes/s sharded against single-device, timed in turns
+    (a measurement, not a check).  Returns each path's launches (counts
+    set to 0 just before each run, read just after it)."""
+    from repro_torch.core.engine import (
+        EXEC_COUNTERS, intersect_sharded_batch, make_shard_mesh, pow2_tiers,
+    )
+    from repro_torch.exec.topology import make_topology
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+    from repro_torch.serve.search import SearchEngine, SuggestEngine
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    flat_kernels = {"bitmap_filter": bitmap_filter_cuda,
+                    "group_match": group_match_cuda}
+    paths = {}
+
+    def counted(path: str, run, kernels=flat_kernels):
+        for k in kernels.values():
+            k.launches = 0
+        result = run()
+        paths[path] = {name: k.launches for name, k in kernels.items()}
+        return result
+
+    out = {"shards": SHARDS, "layout_2d": list(LAYOUT_2D), "s": {}}
+
+    def done(part: str, since: float) -> float:
+        out["s"][part] = time.perf_counter() - since
+        print(f"phase {part}: {out['s'][part]:.1f} s")
+        return time.perf_counter()
+
+    want = {tuple(q): r.doc_ids for q, r in zip(main_log, results)}
+
+    def check(log, got, what: str) -> None:
+        for q, r in zip(log, got):
+            require(np.array_equal(r.doc_ids, want[tuple(q)]),
+                    f"{what}: query {q} disagrees with phase 4's answer")
+
+    # 11a: the log through a sharded query_batch
+    t_part = time.perf_counter()
+    mesh = make_shard_mesh(SHARDS, devices=mesh_devices(device))
+    eng = async_engine(engine, device, cls=SearchEngine, mesh=mesh)
+    plans = [eng.plan(q) for q in main_log]
+    n_sharded = sum(p.sig is not None and p.sig.shards == SHARDS
+                    for p in plans)
+    walls = {"single": [], "sharded": []}
+    for turn in ("single", "sharded", "sharded", "single"):
+        if turn == "single":
+            got, wall = timed(sync, lambda: engine.query_batch(main_log))
+        elif not walls["sharded"]:
+            EXEC_COUNTERS.reset()
+            got, wall = timed(sync, lambda: counted(
+                "11a sharded query_batch",
+                lambda: eng.query_batch(main_log)))
+            counters = EXEC_COUNTERS.snapshot()
+            algos = [r.algorithm for r in got]
+        else:
+            got, wall = timed(sync, lambda: eng.query_batch(main_log))
+        check(main_log, got, f"11a {turn}")
+        walls[turn].append(wall)
+    require(counters["sharded_calls"] > 0, "11a: no sharded pass")
+    require("rangroupscan/sharded" in algos, "11a: nothing served sharded")
+    qps = {k: [len(main_log) / w for w in v] for k, v in walls.items()}
+    pair = [eng.device.get_mesh_set(t) for t in planted]
+    EXEC_COUNTERS.reset()
+    (pair_vals, pair_stats), = intersect_sharded_batch(
+        [pair], mesh, capacity_per_shard=SHARDED_FORCED_CAP)
+    forced = EXEC_COUNTERS.snapshot()
+    require((forced["sharded_calls"], forced["sharded_rerun_calls"]) == (2, 1),
+            f"11a: the planted pair at capacity_per_shard "
+            f"{SHARDED_FORCED_CAP} ran {forced['sharded_calls']} passes, "
+            f"{forced['sharded_rerun_calls']} re-runs")
+    require(np.array_equal(pair_vals, want[tuple(planted)]),
+            "11a: the planted pair's forced re-run disagrees")
+    out["11a"] = {"queries": len(main_log), "sharded_plans": n_sharded,
+                  "walls_s": walls, "qps": qps, "counters": counters,
+                  "forced": {"stats": pair_stats, "counters": forced}}
+    print(f"phase 11a sharded query_batch ({SHARDS} shards on one card): "
+          f"{len(main_log)} queries, {n_sharded} planned sharded; "
+          f"{counters['sharded_calls']} sharded passes, "
+          f"{counters['sharded_rerun_calls']} re-runs, {counters['batch_calls']}"
+          f" single-device; queries/s single-device {qps['single']}, sharded "
+          f"{qps['sharded']} (turns single, sharded, sharded, single); the "
+          f"planted pair at capacity_per_shard {SHARDED_FORCED_CAP}: 2 passes, "
+          f"1 re-run at {pair_stats['capacity_per_shard']}; all answers equal "
+          f"phase 4's")
+    t_part = done("11a", t_part)
+
+    # 11b: a warmed AsyncSearchEngine on a 2x2 topology
+    log_b = main_log[:MESH_QUERIES] + [list(planted)]
+    sizes = sorted({1 << p.sig.ts[-1] for p in map(engine.plan, log_b)
+                    if p.sig is not None})
+    min_g = sizes[len(sizes) // 2]  # both routes: mesh and balancer
+    topo = make_topology(*LAYOUT_2D, devices=mesh_devices(device))
+    eng_b = async_engine(engine, device, topology=topo, shard_min_g=min_g,
+                         flush_tier=MESH_FLUSH_TIER, result_cache=0)
+    EXEC_COUNTERS.reset()
+    (warmed, warm_s) = timed(sync, lambda: counted(
+        "AsyncSearchEngine.warm 2x2", lambda: eng_b.warm(
+            log_b, top_k=len(log_b), b_tiers=pow2_tiers(MESH_FLUSH_TIER))))
+    warm = EXEC_COUNTERS.snapshot()
+    EXEC_COUNTERS.reset()
+
+    def serve_b():
+        tickets = [eng_b.submit(q) for q in log_b]
+        eng_b.drain()
+        return tickets
+
+    tickets, wall_b = timed(sync, lambda: counted("async 11b 2x2", serve_b))
+    cb = EXEC_COUNTERS.snapshot()
+    require(all(t.done and t.error is None for t in tickets),
+            "11b: a ticket unresolved or failed")
+    check(log_b, [t.value for t in tickets], "11b")
+    require(cb["mesh2d_calls"] > 0, "11b: no 2-D pass")
+    require(cb["replica_dispatches"] > 0, "11b: no balancer-placed bucket")
+    require((cb["mesh2d_traces"], cb["batch_traces"]) == (0, 0),
+            f"11b: serve-time traces {cb['mesh2d_traces']} 2-D, "
+            f"{cb['batch_traces']} single-device")
+    routes = {}
+    for t in tickets:
+        routes[t.value.algorithm] = routes.get(t.value.algorithm, 0) + 1
+    loads = [d["dispatched"] for d in topo.load_snapshot()]
+    out["11b"] = {"queries": len(log_b), "shard_min_g": min_g,
+                  "warmed": len(warmed), "warm_s": warm_s, "warm": warm,
+                  "wall_s": wall_b, "qps": len(log_b) / wall_b,
+                  "counters": cb, "routes": routes, "balancer": loads}
+    print(f"phase 11b AsyncSearchEngine on a {topo.describe()} topology "
+          f"(shard_min_g {min_g}, flush tier {MESH_FLUSH_TIER}, cache off): "
+          f"warmed {len(warmed)} signatures in {warm_s:.1f} s "
+          f"({warm['warm_executions']} warm executions, {warm['warm_reruns']} "
+          f"at the re-run capacity); {len(log_b)} queries in {wall_b:.3f} s, "
+          f"{len(log_b) / wall_b:.1f} queries/s; {cb['mesh2d_calls']} 2-D "
+          f"passes ({cb['mesh2d_row_dispatches']} row runs), "
+          f"{cb['replica_dispatches']} balancer-placed buckets (rows {loads});"
+          f" routes {routes}; serve-time traces 0; all answers equal phase 4's")
+    del eng_b, tickets
+    t_part = done("11b", t_part)
+
+    # 11c: phase 7's corpus through a sharded SuggestEngine
+    s_engine, s_oracle, s_log = suggest
+    probes = s_log[:MESH_PROBES]
+    eng_c = SuggestEngine({}, w=W_BITS, m=M_IMAGES, seed=SEED, device=device,
+                          mesh=mesh, shard_min_g=1, result_cache=0)
+    # phase 7's preprocessed sets and pre-filter, shared; mirrors anew
+    eng_c.corpus, eng_c.index = s_engine.corpus, s_engine.index
+    eng_c.prefilter = s_engine.prefilter
+    for sid, idx in s_engine.index.items():
+        eng_c.device.add(sid, idx)
+    walls_c = {"single": [], "sharded": []}
+    for turn in ("single", "sharded", "sharded", "single"):
+        target = s_engine if turn == "single" else eng_c
+        run = lambda: serve_suggest(target, probes, SUGGEST_K,  # noqa: E731
+                                    SUGGEST_BATCH, s_oracle, clear_cache=True,
+                                    sync=sync)
+        if turn == "sharded" and not walls_c["sharded"]:
+            EXEC_COUNTERS.reset()
+            got, wall = counted("11c sharded suggest_batch", run,
+                                {"pair_count": count_block_cuda})
+            cc = EXEC_COUNTERS.snapshot()
+            algos_c = {r.algorithm for r in got}
+        else:
+            _, wall = run()
+        walls_c[turn].append(wall)
+    require(algos_c == {"suggest/sharded"}, f"11c: routes {algos_c}")
+    pps = {k: [len(probes) / w for w in v] for k, v in walls_c.items()}
+    out["11c"] = {"probes": len(probes), "k": SUGGEST_K, "walls_s": walls_c,
+                  "probes_per_s": pps, "counters": cc}
+    print(f"phase 11c sharded suggest_batch: {len(probes)} probes at k "
+          f"{SUGGEST_K}, micro-batches of {SUGGEST_BATCH}, cache cleared; "
+          f"{cc['count_calls']} sharded count passes; probes/s single-device "
+          f"{pps['single']}, sharded {pps['sharded']} (in turns); all answers "
+          f"equal the scipy oracle")
+    del eng_c
+    t_part = done("11c", t_part)
+
+    # 11d: phase 10's expression log through the sharded query_batch
+    served, answers = expr_log
+    plain, wall_plain = timed(sync, lambda: engine.query_batch(served))
+    # the host side of every sharded expression collect: each shard's
+    # segment compacted, then the segments sorted together
+    with EngineTimer("_expr_shard_results") as assembly:
+        got, wall_d = timed(sync, lambda: counted(
+            "11d sharded expressions", lambda: eng.query_batch(served)))
+    for s_, r, p, a in zip(served, got, plain, answers):
+        require(np.array_equal(r.doc_ids, a), f"11d: {s_} disagrees")
+        require(np.array_equal(p.doc_ids, a), f"11d: {s_} (single) disagrees")
+    algos_d = {r.algorithm for r in got}
+    require("expr/sharded" in algos_d, f"11d: routes {algos_d}")
+    out["11d"] = {"queries": len(served), "wall_single_s": wall_plain,
+                  "wall_sharded_s": wall_d, "assembly_s": assembly.s,
+                  "assembly_calls": assembly.calls,
+                  "qps": {"single": len(served) / wall_plain,
+                          "sharded": len(served) / wall_d},
+                  "routes": sorted(algos_d)}
+    print(f"phase 11d sharded expressions: {len(served)} queries; queries/s "
+          f"single-device {len(served) / wall_plain:.2f}, sharded "
+          f"{len(served) / wall_d:.2f}; host result assembly of the sharded "
+          f"expression collects {assembly.s:.3f} s in {assembly.calls} calls; "
+          f"routes {sorted(algos_d)}; all answers equal numpy's")
+    del eng
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    done("11d", t_part)
+    out["launches_by_path"] = paths
+    report["sharded"] = out
     return paths
 
 
@@ -2071,7 +2370,6 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bf, gm = time_kernels(torch, engine, log, results, ref,
                           bitmap_filter_cuda, group_match_cuda)
-    del results  # phase 9 serves the same index
     torch.cuda.empty_cache()
     t_phase = phase_done("5 times", t_phase)
 
@@ -2082,7 +2380,7 @@ def main(argv=None) -> int:
     t_phase = phase_done("6 pair_count", t_phase)
 
     # phase 7: the suggest slice
-    pc_launches, pc_warm_launches, pc = run_suggest_slice(
+    pc_launches, pc_warm_launches, pc, suggest = run_suggest_slice(
         torch, ref, count_block_cuda, report)
     launches["pair_count"] = pc_launches
     t_phase = phase_done("7 suggest", t_phase)
@@ -2098,11 +2396,18 @@ def main(argv=None) -> int:
     t_phase = phase_done("9 online front end", t_phase)
 
     # phase 10: boolean expressions on phase 4's index
-    async_launches.update(run_boolean_expressions(torch, engine, postings,
-                                                  report))
-    del engine, postings
+    expr_launches, expr_log = run_boolean_expressions(torch, engine,
+                                                      postings, report)
+    async_launches.update(expr_launches)
     torch.cuda.empty_cache()
     t_phase = phase_done("10 boolean expressions", t_phase)
+
+    # phase 11: z-sharded and 2-D execution, four shards on the card
+    async_launches.update(run_sharded(torch, engine, results, log, planted,
+                                      suggest, expr_log, report))
+    del engine, postings, results, suggest, expr_log
+    torch.cuda.empty_cache()
+    t_phase = phase_done("11 sharded and 2-D", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},

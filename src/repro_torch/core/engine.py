@@ -29,15 +29,18 @@ bucket's buffers does not.
 Eager PyTorch compiles nothing per shape, so "trace" keeps the meaning a
 jit cache gives it: the first sighting in the process of a pass
 specialization (shape signature, capacity, pow2 B-tier), counted in
-``batch_traces`` / ``count_traces``.  :func:`warm_from_plans` runs each
-hot signature's representative at every B-tier before live traffic, which
-on the card also builds the kernel library and grows the caching
-allocator; serving what was warmed then counts no trace.  Warming is the
-one place the port differs from the JAX package on purpose: where a
-representative fits its capacity, :func:`warm_from_plans` also runs it at
-capacity G, the specialization an overflowing sibling's re-run needs
-(counted in ``warm_reruns``; the JAX package has no such pass, so there
-that sibling traces at serve time).
+``batch_traces`` / ``count_traces`` (and the sharded, 2-D and expression
+families).  A sharded specialization is keyed by its :class:`Mesh` object
+too, as a jit is keyed by the mesh it shard_maps over, and by its
+per-shard capacity.  :func:`warm_from_plans` runs each hot signature's
+representative at every B-tier before live traffic, which on the card
+also builds the kernel library and grows the caching allocator; serving
+what was warmed then counts no trace.  Warming is the one place the port
+differs from the JAX package on purpose: where a representative fits its
+capacity, :func:`warm_from_plans` also runs it at its re-run's capacity (G;
+the local group count on a mesh), the specialization an overflowing
+sibling's re-run needs (counted in ``warm_reruns``; the JAX package has no
+such pass, so there that sibling traces at serve time).
 
 The boolean expression path (:func:`dispatch_expr_batch`) runs a bucket of
 same-shape ∪/∩/∖ expressions as one pass of sort-merge set passes
@@ -49,9 +52,28 @@ of (probe, candidates) rows as one pass: the (B, C) intersection counts
 (``kernels.ops.count_block``, a hand-written CUDA kernel on the card that
 reads the mirrors through a pointer table), then a top-K per row.  It has
 no filter, no survivor buffer and no re-run.
+
+Sharding: every set is partitioned by the same permutation (Theorem 3.7's
+alignment), so equal z-ranges of every set are self-contained and each
+pass splits over a :class:`Mesh` of ``torch.device``s with no
+communication.  A 1-D mesh (:func:`make_shard_mesh`) z-shards a bucket:
+shard s runs the whole pass on its slice of every mirror
+(:meth:`DeviceSet.shard` keeps one view per shard), the same kernels at
+local shapes, with per-(query, shard) overflow flags and one re-run at the
+local group count (:func:`dispatch_sharded_batch`; the count and expression
+twins likewise).  A 2-D ``(data, shard)`` mesh (:func:`make_mesh2d`, driven
+through ``exec.topology.Topology``) adds replica rows: a bucket's batch
+axis splits over the rows, each row runs its slice z-sharded over its own
+1-D row mesh (:func:`dispatch_mesh2d_batch`).  A mesh lists its devices
+explicitly and may repeat one: shards on one device run one after another
+on its current stream, shards on several devices launch under
+``torch.cuda.device``, and each device's shard outputs join into one
+buffer that reaches the host after that device's own ``ready`` event.
+Results, stats and counters equal the JAX package's shard_map pipelines.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -66,28 +88,58 @@ from .partition import PrefixIndex
 
 __all__ = [
     "BatchedEngine",
+    "DATA_AXIS",
     "DeviceSet",
     "EXEC_COUNTERS",
     "ExecCounters",
+    "Mesh",
     "PendingBatch",
+    "ReplicatedDeviceSet",
+    "SHARD_AXIS",
+    "SHARD_MIN_G",
     "clear_specializations",
     "default_capacity",
+    "default_capacity_per_shard",
     "default_expr_capacity",
+    "default_expr_capacity_per_shard",
     "default_k_tier",
     "dispatch_count_batch",
+    "dispatch_count_mesh2d_batch",
+    "dispatch_count_sharded_batch",
     "dispatch_device_batch",
     "dispatch_expr_batch",
+    "dispatch_expr_mesh2d_batch",
+    "dispatch_expr_sharded_batch",
+    "dispatch_mesh2d_batch",
+    "dispatch_sharded_batch",
     "expr_total_width",
     "gmax_tier",
     "intersect_count_batch",
+    "intersect_count_mesh2d_batch",
+    "intersect_count_sharded_batch",
     "intersect_device",
     "intersect_device_batch",
     "intersect_expr_batch",
+    "intersect_expr_mesh2d_batch",
+    "intersect_expr_sharded_batch",
+    "intersect_mesh2d_batch",
+    "intersect_sharded",
+    "intersect_sharded_batch",
+    "make_mesh2d",
+    "make_shard_mesh",
     "pow2_tiers",
     "set_sort_key",
     "warm_executables",
     "warm_from_plans",
 ]
+
+SHARD_AXIS = "shard"  # the name of the z-sharding mesh axis
+DATA_AXIS = "data"    # the name of the data-parallel (replica) axis
+
+# route a query z-sharded only when its largest set has at least this many
+# group tuples: 2^12 groups is about a 65k-element set at w = 256, below
+# which one device finishes a bucket before a mesh has dispatched it
+SHARD_MIN_G = 4096
 
 
 class ExecCounters(dict):
@@ -102,6 +154,14 @@ class ExecCounters(dict):
       a point / count pass specialization (what a jit cache would compile;
       see :func:`clear_specializations`);
     - ``rerun_calls``  overflow re-run passes (survivors > capacity);
+    - ``sharded_calls`` / ``sharded_traces`` / ``sharded_rerun_calls``  the
+      same three for the z-sharded pass (:func:`dispatch_sharded_batch`);
+    - ``mesh2d_calls`` / ``mesh2d_traces`` / ``mesh2d_rerun_calls``  the
+      same three for the 2-D pass (:func:`dispatch_mesh2d_batch`), one
+      call per bucket pass; ``mesh2d_row_dispatches`` counts the replica
+      rows each pass (and each 2-D count bucket) runs;
+    - ``replica_dispatches``  single-device buckets a topology's balancer
+      placed on a replica row (``exec/topology.py``);
     - ``inflight_dispatches`` / ``inflight_collects``  buckets dispatched
       through ``exec.batch.dispatch_bucket`` / torn down by their collect
       (equal after any drain);
@@ -125,13 +185,15 @@ class ExecCounters(dict):
       a learned tier absorbed (``exec/adaptive.py``);
     - ``expr_calls`` / ``expr_traces`` / ``expr_rerun_calls``  the same
       pass / first-sighting / overflow re-run triple for the boolean
-      expression path (:func:`dispatch_expr_batch`);
+      expression path (:func:`dispatch_expr_batch` and its sharded and 2-D
+      twins);
     - ``subexpr_cache_hits`` / ``subexpr_cache_misses``  lookups of
       canonical subexpression entries (``exec/cache.py::ResultCache.
       get_sub``); ``subexpr_cache_stores``  sub-entries stored;
       ``subexpr_host_merges``  expression queries answered on the host
       from cached subexpressions, with no device work;
-    - ``count_calls``  passes of the count-only suggest path;
+    - ``count_calls``  passes of the count-only suggest path (its sharded
+      twin included; a 2-D count bucket counts one per replica row);
     - ``suggest_prefilter_in`` / ``suggest_prefilter_kept``  candidates the
       suggest pre-filter examined / kept;
     - ``dispatch_failures``  buckets whose dispatch or collect raised.
@@ -142,6 +204,9 @@ class ExecCounters(dict):
 
     _KEYS = (
         "batch_calls", "batch_traces", "rerun_calls",
+        "sharded_calls", "sharded_traces", "sharded_rerun_calls",
+        "mesh2d_calls", "mesh2d_traces", "mesh2d_rerun_calls",
+        "mesh2d_row_dispatches", "replica_dispatches",
         "inflight_dispatches", "inflight_collects",
         "collect_us", "overlap_high_water",
         "warm_executions", "warm_reruns",
@@ -281,13 +346,107 @@ def gmax_tier(gmax: int) -> int:
     return 1 << max(3, (int(gmax) - 1).bit_length())
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A named grid of ``torch.device``s: the port's counterpart of a JAX
+    ``Mesh``, for one process driving several devices (not
+    ``torch.distributed``).  ``devices`` is a numpy object array with one
+    axis per name in ``axis_names``; ``shape[axis]`` reads as in JAX.  The
+    grid may repeat a device, which lays several logical shards onto it.
+
+    Compared and hashed by identity: a pass specialization is keyed by the
+    mesh object it runs over, as a jit is (``exec.topology.Topology``
+    keeps one row mesh per replica row for that reason).
+    """
+
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis`` of a 1-D mesh, in shard order."""
+        if self.axis_names != (axis,):
+            raise ValueError(f"need a 1-D mesh over {axis!r}, got axes "
+                             f"{self.axis_names}")
+        return list(self.devices)
+
+
+def _device_grid(devices: Sequence[torch.device], shape) -> np.ndarray:
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = list(devices)
+    return grid.reshape(shape)
+
+
+def _mesh_devices(devices: Optional[Sequence[Device]]) -> List[torch.device]:
+    """The devices a mesh may use: the caller's list, each resolved (a
+    device may repeat), or every visible CUDA device.  No CPU fallback:
+    a CUDA device, asked for or defaulted, raises when there is no GPU."""
+    if devices is not None:
+        return [resolve_device(d) for d in devices]
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a mesh over the visible CUDA devices needs a GPU; pass "
+            "devices=[...] to lay shards out explicitly")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_shard_mesh(n_shards: Optional[int] = None, axis: str = SHARD_AXIS,
+                    devices: Optional[Sequence[Device]] = None) -> Mesh:
+    """1-D mesh of ``n_shards`` devices named ``axis``: the first
+    ``n_shards`` of ``devices`` (default: the visible CUDA devices; all of
+    them when ``n_shards`` is None).  Raises when there are too few.  A
+    device listed several times carries several shards, e.g.
+    ``make_shard_mesh(4, devices=["cuda:0"] * 4)`` on a one-GPU machine."""
+    devs = _mesh_devices(devices)
+    n = len(devs) if n_shards is None else int(n_shards)
+    if not 1 <= n <= len(devs):
+        raise ValueError(f"need {n} devices, have {len(devs)}")
+    return Mesh(_device_grid(devs[:n], (n,)), (axis,))
+
+
+def make_mesh2d(replicas: int, shards: Optional[int] = None,
+                data_axis: str = DATA_AXIS, shard_axis: str = SHARD_AXIS,
+                devices: Optional[Sequence[Device]] = None) -> Mesh:
+    """2-D ``(data, shard)`` mesh: ``replicas`` rows of ``shards`` devices,
+    laid out row-major from ``devices`` (default: the visible CUDA
+    devices; ``shards`` defaults to spending all of them).  ``replicas``
+    must be a power of two, so pow2 batch tiers always split evenly over
+    the rows.  ``replicas = 1`` is pure z-sharding, ``shards = 1`` pure
+    data parallelism."""
+    devs = _mesh_devices(devices)
+    replicas = int(replicas)
+    if replicas < 1 or replicas & (replicas - 1):
+        raise ValueError("replicas must be a power of two (batch tiers are "
+                         "pow2)")
+    shards = len(devs) // replicas if shards is None else int(shards)
+    n = replicas * shards
+    if shards < 1 or n > len(devs):
+        raise ValueError(f"need {replicas}x{shards} = {n} devices, have "
+                         f"{len(devs)}")
+    return Mesh(_device_grid(devs[:n], (replicas, shards)),
+                (data_axis, shard_axis))
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` the current CUDA device for the work issued inside (a
+    no-op on the CPU)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceSet:
     """Device mirror of a PrefixIndex (sentinel-padded; mask implicit).
 
     ``vals`` are the original elements as int32 bit patterns (the sentinel
     0xFFFFFFFF is -1), padded to the power-of-two ``gmax`` tier; ``images``
-    are the filter images as int32 bit patterns.
+    are the filter images as int32 bit patterns.  A z-sharded mirror
+    (:meth:`shard`) also holds its ``mesh`` and, in ``parts``, shard s's
+    ``(vals, images)`` z-slice on shard s's device.
     """
 
     t: int
@@ -297,6 +456,8 @@ class DeviceSet:
     n: int
     vals: torch.Tensor     # (2^t, gmax) int32 (original values; -1 padding)
     images: torch.Tensor   # (2^t, m, W) int32 bit patterns
+    mesh: Optional[Mesh] = None
+    parts: Tuple[Tuple[torch.Tensor, torch.Tensor], ...] = ()
 
     @classmethod
     def from_host(cls, idx: PrefixIndex, device: Device = "cuda") -> "DeviceSet":
@@ -318,6 +479,86 @@ class DeviceSet:
     def device(self) -> torch.device:
         return self.vals.device
 
+    def shardable(self, n_shards: int) -> bool:
+        """True when the z axis splits evenly over ``n_shards``: the
+        Theorem 3.7 alignment condition (every shard holds whole z-groups
+        of this set)."""
+        return n_shards >= 1 and (1 << self.t) % n_shards == 0
+
+    def shard(self, mesh: Mesh, axis: str = SHARD_AXIS) -> "DeviceSet":
+        """Z-sharded mirror over the 1-D ``mesh``: shard s's rows
+        ``[s * 2^t / n, (s + 1) * 2^t / n)`` of ``vals`` and ``images``,
+        moved to shard s's device.  A shard on the mirror's own device is
+        a contiguous view and costs no memory.  Built once at index time,
+        so no pass pays a per-call split."""
+        devs = mesh.axis_devices(axis)
+        if not self.shardable(len(devs)):
+            raise ValueError(f"2^{self.t} z-groups do not split over "
+                             f"{len(devs)} shards")
+        gl = (1 << self.t) // len(devs)
+        parts = tuple((self.vals[s * gl:(s + 1) * gl].to(dev),
+                       self.images[s * gl:(s + 1) * gl].to(dev))
+                      for s, dev in enumerate(devs))
+        return dataclasses.replace(self, mesh=mesh, parts=parts)
+
+    def place(self, device: Device) -> "DeviceSet":
+        """Plain mirror on ``device``: the topology's per-replica-row mirror
+        for balancer-placed buckets.  On the mirror's own device it is this
+        mirror, tensors and all."""
+        dev = resolve_device(device)
+        if dev == self.device and self.mesh is None:
+            return self
+        return dataclasses.replace(self, vals=self.vals.to(dev),
+                                   images=self.images.to(dev), mesh=None,
+                                   parts=())
+
+
+def _shard_parts(ds: DeviceSet, mesh: Mesh, axis: str
+                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """``ds``'s per-shard ``(vals, images)`` on ``mesh``: its own when it is
+    a mirror sharded on that mesh, else split now (a plain mirror works,
+    at a per-call split)."""
+    if ds.mesh is mesh:
+        return ds.parts
+    return ds.shard(mesh, axis).parts
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicatedDeviceSet:
+    """One set's mirrors on every replica row of a 2-D topology.
+
+    ``rows[r]`` is row r's mirror: z-sharded over the row's mesh when the
+    topology has ``shards > 1``, a plain mirror on the row's device
+    otherwise.  Exposes row 0's ``t`` / ``gmax`` / ``n`` / ``m`` / ``w``
+    (equal on every row), so the ``(t, n)`` sort and the signature checks
+    treat it as a :class:`DeviceSet`.
+    """
+
+    rows: Tuple[DeviceSet, ...]
+
+    def row(self, r: int) -> DeviceSet:
+        return self.rows[r]
+
+    @property
+    def t(self) -> int:
+        return self.rows[0].t
+
+    @property
+    def gmax(self) -> int:
+        return self.rows[0].gmax
+
+    @property
+    def n(self) -> int:
+        return self.rows[0].n
+
+    @property
+    def m(self) -> int:
+        return self.rows[0].m
+
+    @property
+    def w(self) -> int:
+        return self.rows[0].w
+
 
 def set_sort_key(s) -> Tuple[int, int]:
     """THE canonical set ordering key, ``(t, n)``: ascending partition depth
@@ -333,25 +574,40 @@ def default_capacity(ts: Tuple[int, ...]) -> int:
     return max(64, (1 << ts[-1]) // 4)
 
 
+def default_capacity_per_shard(ts: Tuple[int, ...], n_shards: int,
+                               capacity: Optional[int] = None) -> int:
+    """Per-shard survivor-buffer tier of the sharded pass: the whole-query
+    budget (``capacity`` when given, e.g. a learned
+    ``ShapeSig.capacity_tier``, else :func:`default_capacity`) divided over
+    the shards (``g`` spreads survivors evenly over z), floored at 16, and
+    never past the local group count ``G / n_shards``."""
+    local_g = (1 << ts[-1]) // n_shards
+    whole = default_capacity(ts) if capacity is None else int(capacity)
+    return min(local_g, max(16, whole // n_shards))
+
+
 def _aligned_images(images: Sequence[Sequence[torch.Tensor]],
                     ts: Tuple[int, ...]) -> torch.Tensor:
     """Prefix-aligned images of a bucket: ``images[i][b]`` is query b's
     (2^{t_i}, m, W) images of its i-th set; returns (B, k, G, m, W) with
     G = 2^{t_k}, set i's row z_i = z >> (t_k - t_i) repeated at every z.
+    On one shard's z-slices ((2^{t_i} / n, m, W) each) it returns that
+    shard's (B, k, G / n, m, W): the shift does not depend on the shard.
 
     Each query's images are copied straight into their slot of the output
     (one broadcast copy per set and query), so no (B, G_i, m, W) stack is
     made on the way.
     """
     tk = ts[-1]
-    G = 1 << tk
     first = images[0][0]
+    G = first.shape[0] << (tk - ts[0])
     B = len(images[0])
     m, W = first.shape[1:]
     out = torch.empty((B, len(ts), G, m, W), dtype=first.dtype,
                       device=first.device)
     for i, (per_query, t) in enumerate(zip(images, ts)):
-        g, rep = 1 << t, 1 << (tk - t)
+        rep = 1 << (tk - t)
+        g = G // rep
         for b, img in enumerate(per_query):
             out[b, i].view(g, rep, m, W).copy_(img[:, None].expand(g, rep, m, W))
     return out
@@ -391,16 +647,17 @@ def _intersect_k_batch(
     """One pass over a same-signature bucket of B queries.
 
     ``vals[i][b]``: query b's (2^{t_i}, gmax_i) int32 values of its i-th set;
-    ``images[i][b]``: its (2^{t_i}, m, W) images.  Returns (packed, r,
-    n_surv, overflow) with a leading B axis each.
+    ``images[i][b]``: its (2^{t_i}, m, W) images (or one shard's z-slices of
+    both, :func:`_local_shard_block`).  Returns (packed, r, n_surv,
+    overflow) with a leading B axis each.
 
     The values are never stacked whole: each query's survivor rows
     (``surv >> (t_k - t_i)``) are gathered from its own tensor and only the
     gathered (B, capacity, g_i) rows are stacked.
     """
     tk = ts[-1]
-    G = 1 << tk
     passed = ops.bitmap_filter(_aligned_images(images, ts))    # (B, G)
+    G = passed.shape[1]
     n_surv = passed.sum(dim=1)
     surv = _first_survivors(passed, capacity)
     valid_row = surv < G
@@ -427,7 +684,8 @@ class PendingBatch:
 
     The pass is enqueued on the device's stream when dispatch returns;
     ``handles`` are its output tensors and ``ready`` a CUDA event recorded
-    after it (``None`` on the CPU, where the pass ran synchronously).
+    after it (``None`` on the CPU, where the pass ran synchronously), or a
+    list of such events, one per device a sharded pass ran on.
     :meth:`collect` copies the results to the host (waiting on ``ready``
     only), runs any overflow re-run and returns exactly what
     :func:`intersect_device_batch` returns; it is memoized.
@@ -435,7 +693,7 @@ class PendingBatch:
 
     n_queries: int
     handles: object = None
-    ready: Optional["torch.cuda.Event"] = None
+    ready: object = None
     _collect: Optional[Callable[[], List[Tuple[np.ndarray, Dict]]]] = None
     _results: Optional[List[Tuple[np.ndarray, Dict]]] = None
 
@@ -443,9 +701,10 @@ class PendingBatch:
         """True when the first pass has finished on the device (a collect
         would not wait for it; an overflow re-run can still add work).
         Never blocks."""
-        if self._results is not None or self.ready is None:
+        if self._results is not None:
             return True
-        return self.ready.query()
+        events = self.ready if isinstance(self.ready, list) else [self.ready]
+        return all(e is None or e.query() for e in events)
 
     def collect(self) -> List[Tuple[np.ndarray, Dict]]:
         """Block for the results: [(sorted values, stats), ...] in query
@@ -557,6 +816,361 @@ def intersect_device(sets: Sequence[DeviceSet], capacity: Optional[int] = None,
     return result, stats
 
 
+# -- z-sharded and 2-D execution -------------------------------------------------
+#
+# A sharded pass runs the single-device pass once per shard, on the shard's
+# z-slice of every mirror, with the same kernels at local shapes: Theorem
+# 3.7's alignment maps shard s's z range of the deepest set into shard s's
+# range of every other set, so nothing crosses shards.  The outputs of the
+# shards on one device join into one buffer per output (result rows along
+# the capacity or width axis, per-shard scalars stacked on a leading shard
+# axis) that reaches the host after that device's own event.  The order of
+# shards in a join is immaterial: values are sorted at collect and stats
+# sum, max or any over the shard axis.
+#
+# A 2-D pass splits a bucket's B-tier, floored at the replica count, into
+# equal contiguous slices, one per replica row; a row runs its slice as a
+# sharded pass over its own row mesh (or the plain pass on its device when
+# the topology has one shard), and a slice of padding only is never run.
+# ``topology`` is an ``exec.topology.Topology`` (``replicas``, ``shards``,
+# ``shard_axis``, ``row_mesh(r)``, ``replica_device(r)``).
+
+# join axis of each output of a flat pass: packed rows along the capacity
+# axis; r, n_surv and overflow stacked on a leading shard axis
+_FLAT_JOIN = (1, None, None, None)
+
+
+def _join_shards(outs: Sequence[Sequence[torch.Tensor]],
+                 devs: Sequence[torch.device], join: Sequence[Optional[int]]):
+    """Join per-shard outputs device by device: ``outs[s]`` are shard s's
+    output tensors on ``devs[s]``; output j of one device's shards is
+    concatenated along ``join[j]``, or stacked on a new leading axis where
+    that is None.  Returns ``[(tensors, ready), ...]``, one per device, each
+    with the event recorded after its own join."""
+    by_dev: Dict[torch.device, List[int]] = {}
+    for s, dev in enumerate(devs):
+        by_dev.setdefault(dev, []).append(s)
+    joined = []
+    for dev, ids in by_dev.items():
+        with _on(dev):
+            tensors = [torch.stack([outs[s][j] for s in ids]) if dim is None
+                       else torch.cat([outs[s][j] for s in ids], dim=dim)
+                       for j, dim in enumerate(join)]
+            joined.append((tensors, _record_ready(dev)))
+    return joined
+
+
+def _fetch_joined(joined, join: Sequence[Optional[int]]) -> List[np.ndarray]:
+    """Host copies of a sharded pass's outputs: each device's join is copied
+    after its own event (:func:`_to_host`), then the devices' copies are
+    concatenated along the same axes."""
+    host = [_to_host(tensors, ready) for tensors, ready in joined]
+    if len(host) == 1:
+        return host[0]
+    return [np.concatenate([h[j] for h in host],
+                           axis=0 if dim is None else dim)
+            for j, dim in enumerate(join)]
+
+
+def _events(joined) -> list:
+    return [ready for _, ready in joined]
+
+
+def _flat_signature(ordered) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    ts, gmaxes = _signature(ordered[0])
+    for q in ordered:
+        if _signature(q) != (ts, gmaxes):
+            raise ValueError("bucket mixes shape signatures")
+    return ts, gmaxes
+
+
+def _sharded_spec(counter: str, mesh: Mesh, ts, gmaxes, m: int, w: int,
+                  cap: int, n_rows: int) -> Tuple:
+    """The specialization a sharded point pass of ``n_rows`` rows runs on
+    ``mesh`` (the counter is part of it, as a jit's ``trace_counter``)."""
+    return ("sharded", counter, mesh, ts, gmaxes, m, w, cap, _b_tier(n_rows))
+
+
+def _local_shard_block(vals, images, ts: Tuple[int, ...],
+                       capacity_per_shard: int):
+    """One shard's two-phase pass: :func:`_intersect_k_batch` on the
+    shard's z-slices (``vals[i][b]`` (2^t_i / n, gmax_i), ``images[i][b]``
+    (2^t_i / n, m, W)).  The caller clamps the per-shard capacity to the
+    local group count, so the survivor buffer never pads."""
+    g_local = images[-1][0].shape[0]
+    if capacity_per_shard > g_local:
+        raise ValueError(f"per-shard capacity {capacity_per_shard} exceeds "
+                         f"the local group count {g_local}")
+    return _intersect_k_batch(vals, images, ts, capacity_per_shard)
+
+
+def _intersect_k_sharded_batch(parts, ts: Tuple[int, ...],
+                               devs: Sequence[torch.device],
+                               capacity_per_shard: int):
+    """One z-sharded pass: ``parts[i][b]`` is query b's per-shard ``(vals,
+    images)`` of set i.  Shard s runs :func:`_local_shard_block` on
+    ``devs[s]`` (shards sharing a device run one after another on its
+    current stream).  Returns the device joins of (packed (B, n * cap,
+    g_0), r, n_surv, overflow (n, B))."""
+    outs = []
+    for s, dev in enumerate(devs):
+        with _on(dev):
+            outs.append(_local_shard_block(
+                [[p[s][0] for p in per_query] for per_query in parts],
+                [[p[s][1] for p in per_query] for per_query in parts],
+                ts, capacity_per_shard))
+    return _join_shards(outs, devs, _FLAT_JOIN)
+
+
+def _flat_shard_result(packed_row: np.ndarray, r_col: np.ndarray,
+                       surv_col: np.ndarray, **stats):
+    """One query's answer from a sharded pass: its values off every shard,
+    sorted, and the stats summed (``r``, ``tuples_survived``) or maxed
+    (``max_shard_survivors``) over the shard axis."""
+    row_vals = packed_row.ravel()
+    out = row_vals[row_vals != -1]
+    return np.sort(out.view(np.uint32)), {
+        "tuples_survived": int(surv_col.sum()),
+        "max_shard_survivors": int(surv_col.max()),
+        "r": int(r_col.sum()), **stats}
+
+
+def dispatch_sharded_batch(
+    queries: Sequence[Sequence[DeviceSet]],
+    mesh: Mesh,
+    axis: str = SHARD_AXIS,
+    capacity_per_shard: Optional[int] = None,
+) -> PendingBatch:
+    """Enqueue the first z-sharded pass of a same-signature bucket.
+
+    The sharded twin of :func:`dispatch_device_batch` over the 1-D
+    ``mesh``: the smallest set's 2^t must split over the shards, and each
+    shard compacts its own survivors into a ``capacity_per_shard`` buffer
+    (default :func:`default_capacity_per_shard`, clamped to the local group
+    count G / n).  A query whose survivors exceed it on ANY shard re-runs
+    once, in a subset pass at G / n, where no shard can overflow.  Pass
+    z-sharded mirrors (:meth:`DeviceSet.shard` on ``mesh``); plain mirrors
+    are split per call.  Counters: ``sharded_calls`` per pass,
+    ``sharded_rerun_calls`` per re-run, ``sharded_traces`` per first
+    sighting of (mesh, signature, per-shard capacity, pow2 B-tier).  Stats
+    add ``max_shard_survivors``, ``capacity_per_shard`` and ``n_shards``.
+    """
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    devs = mesh.axis_devices(axis)
+    n_shards = len(devs)
+    ordered = [sorted(q, key=set_sort_key) for q in queries]
+    ts, gmaxes = _flat_signature(ordered)
+    if (1 << ts[0]) % n_shards:
+        raise ValueError(f"smallest set (t={ts[0]}) does not split over "
+                         f"{n_shards} shards")
+    G = 1 << ts[-1]
+    G_local = G // n_shards
+    m, w = ordered[0][0].m, ordered[0][0].w
+    parts = [[_shard_parts(s, mesh, axis) for s in q] for q in ordered]
+
+    def issue(active: List[int], cap: int):
+        EXEC_COUNTERS.bump("sharded_calls")
+        _note_specialization("sharded_traces", _sharded_spec(
+            "sharded_traces", mesh, ts, gmaxes, m, w, cap, len(active)))
+        return _intersect_k_sharded_batch(
+            [[parts[i][j] for i in active] for j in range(len(ts))], ts,
+            devs, cap)
+
+    first_active = list(range(len(ordered)))
+    first_cap = min(capacity_per_shard
+                    or default_capacity_per_shard(ts, n_shards), G_local)
+    first = issue(first_active, first_cap)
+
+    def collect() -> List[Tuple[np.ndarray, Dict]]:
+        results: List[Optional[Tuple[np.ndarray, Dict]]] = [None] * len(ordered)
+        active, cap, joined = first_active, first_cap, first
+        while True:
+            packed_h, r_h, n_surv_h, over_h = _fetch_joined(joined, _FLAT_JOIN)
+            rerun = []
+            for row, qi in enumerate(active):
+                if over_h[:, row].any():
+                    rerun.append(qi)
+                    continue
+                results[qi] = _flat_shard_result(
+                    packed_h[row], r_h[:, row], n_surv_h[:, row],
+                    group_tuples=G, capacity_per_shard=cap,
+                    n_shards=n_shards, batch_size=len(active))
+            if not rerun:
+                return results  # type: ignore[return-value]
+            active = rerun
+            cap = G_local  # rare path: one re-run at local G, no overflow
+            EXEC_COUNTERS.bump("sharded_rerun_calls")
+            joined = issue(active, cap)
+
+    return PendingBatch(n_queries=len(ordered), handles=first,
+                        ready=_events(first), _collect=collect)
+
+
+def intersect_sharded_batch(
+    queries: Sequence[Sequence[DeviceSet]],
+    mesh: Mesh,
+    axis: str = SHARD_AXIS,
+    capacity_per_shard: Optional[int] = None,
+) -> List[Tuple[np.ndarray, Dict]]:
+    """A same-signature bucket z-sharded over ``mesh``, synchronously:
+    [(sorted uint32 values, stats), ...] in query order, equal to
+    :func:`intersect_device_batch`'s values."""
+    return dispatch_sharded_batch(
+        queries, mesh, axis=axis,
+        capacity_per_shard=capacity_per_shard).collect()
+
+
+def intersect_sharded(sets: Sequence[DeviceSet], mesh: Mesh,
+                      axis: str = SHARD_AXIS,
+                      capacity_per_shard: Optional[int] = None):
+    """Intersect k device sets z-sharded over ``mesh``: a batch of one.
+    Returns (values, stats)."""
+    (result, stats), = intersect_sharded_batch(
+        [list(sets)], mesh, axis=axis, capacity_per_shard=capacity_per_shard)
+    return result, stats
+
+
+def _mesh2d_rows(n_replicas: int, n_active: int):
+    """The 2-D layout of ``n_active`` queries: the pow2 B-tier, floored at
+    the replica count, splits into ``n_replicas`` equal slices.  Returns
+    (slice_len, [(row, lo, hi), ...]) for the rows whose slice
+    ``active[lo:hi]`` holds a real query."""
+    slice_len = max(n_replicas, _b_tier(n_active)) // n_replicas
+    return slice_len, [(rr, rr * slice_len,
+                        min(n_active, (rr + 1) * slice_len))
+                       for rr in range(n_replicas)
+                       if rr * slice_len < n_active]
+
+
+def _mesh2d_spec(topology, rr: int, ts, gmaxes, m: int, w: int, cap: int,
+                 slice_len: int) -> Tuple:
+    """The specialization row ``rr`` of a 2-D point pass runs: the sharded
+    pass on the row's mesh, or (one shard) the plain pass, which, as a jit
+    over committed arrays, is not keyed by the row's device."""
+    if topology.shards > 1:
+        return _sharded_spec("mesh2d_traces", topology.row_mesh(rr), ts,
+                             gmaxes, m, w, cap, slice_len)
+    return ("mesh2d", ts, gmaxes, m, w, cap, slice_len)
+
+
+def _row_device(topology, rr: int, sets: Sequence[DeviceSet]) -> torch.device:
+    """Row ``rr``'s device, which every plain row mirror must be on."""
+    dev = resolve_device(topology.replica_device(rr))
+    for s in sets:
+        if s.device != dev:
+            raise ValueError(f"row {rr} mirror on {s.device}, row runs on "
+                             f"{dev}")
+    return dev
+
+
+def dispatch_mesh2d_batch(
+    queries: Sequence[Sequence[ReplicatedDeviceSet]],
+    topology,
+    capacity_per_shard: Optional[int] = None,
+) -> PendingBatch:
+    """Enqueue the first 2-D ``(data, shard)`` pass of a bucket.
+
+    ``queries[i][j]`` is a :class:`ReplicatedDeviceSet`; replica row r runs
+    its contiguous slice of the bucket on ``row(r)``'s mirrors, z-sharded
+    over ``topology.row_mesh(r)`` (the plain pass on the row's device when
+    ``shards == 1``).  Every row is issued before any is collected.
+    Overflow is per (query, shard), with one re-run at the local group
+    count, as in :func:`dispatch_sharded_batch`.  Counters:
+    ``mesh2d_calls`` per pass, ``mesh2d_row_dispatches`` per row run,
+    ``mesh2d_rerun_calls`` per re-run, ``mesh2d_traces`` per first
+    sighting of a row's specialization.  Stats add ``n_replicas`` and the
+    ``replica`` that ran the query.
+    """
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    n_replicas, n_shards = topology.replicas, topology.shards
+    axis = topology.shard_axis
+    if n_replicas & (n_replicas - 1):
+        raise ValueError("the data axis must be a power of two")
+    ordered = [sorted(q, key=set_sort_key) for q in queries]
+    ts, gmaxes = _flat_signature(ordered)
+    if (1 << ts[0]) % n_shards:
+        raise ValueError(f"smallest set (t={ts[0]}) does not split over "
+                         f"{n_shards} shards")
+    G = 1 << ts[-1]
+    G_local = G // n_shards
+    m, w = ordered[0][0].m, ordered[0][0].w
+
+    def issue(active: List[int], cap: int):
+        slice_len, layout = _mesh2d_rows(n_replicas, len(active))
+        EXEC_COUNTERS.bump("mesh2d_calls")
+        handles = {}
+        for rr, lo, hi in layout:
+            EXEC_COUNTERS.bump("mesh2d_row_dispatches")
+            _note_specialization("mesh2d_traces", _mesh2d_spec(
+                topology, rr, ts, gmaxes, m, w, cap, slice_len))
+            rows = [[ordered[i][j].row(rr) for i in active[lo:hi]]
+                    for j in range(len(ts))]
+            if n_shards > 1:
+                mesh = topology.row_mesh(rr)
+                handles[rr] = _intersect_k_sharded_batch(
+                    [[_shard_parts(s, mesh, axis) for s in per] for per in rows],
+                    ts, mesh.axis_devices(axis), cap)
+            else:
+                dev = _row_device(topology, rr, [s for per in rows for s in per])
+                with _on(dev):
+                    out = _intersect_k_batch(
+                        [[s.vals for s in per] for per in rows],
+                        [[s.images for s in per] for per in rows], ts, cap)
+                handles[rr] = _join_shards([out], [dev], _FLAT_JOIN)
+        return handles, slice_len
+
+    first_active = list(range(len(ordered)))
+    first_cap = min(capacity_per_shard
+                    or default_capacity_per_shard(ts, n_shards), G_local)
+    first_handles, first_slice = issue(first_active, first_cap)
+
+    def collect() -> List[Tuple[np.ndarray, Dict]]:
+        results: List[Optional[Tuple[np.ndarray, Dict]]] = [None] * len(ordered)
+        active, cap = first_active, first_cap
+        handles, slice_len = first_handles, first_slice
+        while True:
+            # one collection point: every row was issued before any copy
+            rerun = []
+            for rr, joined in handles.items():
+                packed_h, r_h, n_surv_h, over_h = _fetch_joined(joined,
+                                                                _FLAT_JOIN)
+                for local in range(packed_h.shape[0]):
+                    qi = active[rr * slice_len + local]
+                    if over_h[:, local].any():
+                        rerun.append(qi)
+                        continue
+                    results[qi] = _flat_shard_result(
+                        packed_h[local], r_h[:, local], n_surv_h[:, local],
+                        group_tuples=G, capacity_per_shard=cap,
+                        n_shards=n_shards, n_replicas=n_replicas, replica=rr,
+                        batch_size=len(active))
+            if not rerun:
+                return results  # type: ignore[return-value]
+            active = rerun
+            cap = G_local  # rare path: one re-run at local G, no overflow
+            EXEC_COUNTERS.bump("mesh2d_rerun_calls")
+            handles, slice_len = issue(active, cap)
+
+    return PendingBatch(
+        n_queries=len(ordered), handles=first_handles,
+        ready=[e for joined in first_handles.values() for e in _events(joined)],
+        _collect=collect)
+
+
+def intersect_mesh2d_batch(
+    queries: Sequence[Sequence[ReplicatedDeviceSet]],
+    topology,
+    capacity_per_shard: Optional[int] = None,
+) -> List[Tuple[np.ndarray, Dict]]:
+    """A same-signature bucket over a 2-D topology, synchronously:
+    [(sorted uint32 values, stats), ...] in query order (see
+    :func:`dispatch_mesh2d_batch`)."""
+    return dispatch_mesh2d_batch(
+        queries, topology, capacity_per_shard=capacity_per_shard).collect()
+
+
 # -- boolean expression path ---------------------------------------------------
 #
 # An expression bucket is B queries of one leaf-erased shape (``eshape``,
@@ -593,6 +1207,19 @@ def default_expr_capacity(ts: Tuple[int, ...],
     total = expr_total_width(ts, gmaxes)
     tier = 1 << max(0, (total - 1).bit_length())
     return max(64, tier // 4)
+
+
+def default_expr_capacity_per_shard(ts: Tuple[int, ...],
+                                    gmaxes: Tuple[int, ...], n_shards: int,
+                                    capacity: Optional[int] = None) -> int:
+    """Per-shard node-buffer tier of the sharded expression pass: the
+    expression analogue of :func:`default_capacity_per_shard` (the whole
+    budget over the shards, floored at 16, never past the local total leaf
+    width)."""
+    local_total = expr_total_width(ts, gmaxes) // n_shards
+    whole = (default_expr_capacity(ts, gmaxes) if capacity is None
+             else int(capacity))
+    return min(local_total, max(16, whole // n_shards))
 
 
 def _count_expr_subs(eshape) -> int:
@@ -757,6 +1384,228 @@ def intersect_expr_batch(
                                sub_keys=sub_keys, device=device).collect()
 
 
+def _expr_join(n_outputs: int) -> Tuple[Optional[int], ...]:
+    """Join axis of each output of an expression pass: root and sub rows
+    along the width axis; r, max count and overflow stacked per shard."""
+    return (1, None, None, None) + (1,) * (n_outputs - 4)
+
+
+def _expr_sharded_spec(mesh: Mesh, eshape, ts, gmaxes, cap: int,
+                       n_rows: int) -> Tuple:
+    """The specialization a sharded expression pass runs on ``mesh``."""
+    return ("expr-sharded", mesh, eshape, ts, gmaxes, cap, _b_tier(n_rows))
+
+
+def _eval_expr_sharded_batch(parts, eshape, devs: Sequence[torch.device],
+                             capacity_per_shard: int):
+    """One z-sharded expression pass: ``parts[i][b]`` is query b's
+    per-shard ``(vals, images)`` of leaf i; shard s evaluates the whole DAG
+    on its z-slices (``g`` aligns every leaf, so ∪/∩/∖ distribute over
+    z-ranges).  Returns the device joins of (root, r, max_count, overflow,
+    *subs)."""
+    outs = []
+    for s, dev in enumerate(devs):
+        with _on(dev):
+            root, r, maxc, over, subs = _eval_expr_batch(
+                [[p[s][0] for p in per_query] for per_query in parts],
+                eshape, capacity_per_shard)
+            outs.append((root, r, maxc, over, *subs))
+    return _join_shards(outs, devs, _expr_join(len(outs[0])))
+
+
+def _expr_shard_results(fetched, rows, sub_keys, **stats):
+    """Per-query answers of a sharded expression pass: ``fetched`` are the
+    host copies of (root, r, max_count, overflow, *subs), ``rows`` the
+    (row, query) pairs to read.  Returns (results by query, queries to
+    re-run).  Shard segments are each sorted, so the values sort again."""
+    root_h, r_h, maxc_h, over_h, *subs_h = fetched
+    out, rerun = {}, []
+    for row, qi in rows:
+        if over_h[:, row].any():
+            rerun.append(qi)
+            continue
+        st = {"tuples_survived": int(maxc_h[:, row].sum()),
+              "max_shard_survivors": int(maxc_h[:, row].max()),
+              "r": int(r_h[:, row].sum()), **stats}
+        if sub_keys is not None:
+            st["subexprs"] = [(key, np.sort(_compact_u32(sub[row])))
+                              for key, sub in zip(sub_keys[qi], subs_h)]
+        out[qi] = (np.sort(_compact_u32(root_h[row])), st)
+    return out, rerun
+
+
+def _expr_mesh_signature(ordered, n_shards: int):
+    ts, gmaxes = _expr_signature(ordered[0])
+    for q in ordered:
+        if _expr_signature(q) != (ts, gmaxes):
+            raise ValueError("bucket mixes expression leaf signatures")
+    if any((1 << t) % n_shards for t in ts):
+        raise ValueError(f"every leaf must split over {n_shards} shards")
+    return ts, gmaxes
+
+
+def dispatch_expr_sharded_batch(
+    queries: Sequence[Sequence[DeviceSet]],
+    eshape,
+    mesh: Mesh,
+    axis: str = SHARD_AXIS,
+    capacity_per_shard: Optional[int] = None,
+    sub_keys: Optional[Sequence[Sequence]] = None,
+) -> PendingBatch:
+    """Enqueue the first z-sharded pass of an expression bucket: the
+    expression twin of :func:`dispatch_sharded_batch`.  Every leaf's 2^t
+    must split over ``mesh``; overflow is per (query, shard), with one
+    re-run at the local total leaf width.  Counters as
+    :func:`dispatch_expr_batch`'s; stats add ``max_shard_survivors``,
+    ``capacity_per_shard`` and ``n_shards``."""
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    devs = mesh.axis_devices(axis)
+    n_shards = len(devs)
+    ordered = [list(q) for q in queries]
+    ts, gmaxes = _expr_mesh_signature(ordered, n_shards)
+    total = expr_total_width(ts, gmaxes)
+    local_total = total // n_shards
+    parts = [[_shard_parts(s, mesh, axis) for s in q] for q in ordered]
+
+    def issue(active: List[int], cap: int):
+        EXEC_COUNTERS.bump("expr_calls")
+        _note_specialization("expr_traces", _expr_sharded_spec(
+            mesh, eshape, ts, gmaxes, cap, len(active)))
+        return _eval_expr_sharded_batch(
+            [[parts[i][j] for i in active] for j in range(len(ts))], eshape,
+            devs, cap)
+
+    first_active = list(range(len(ordered)))
+    first_cap = min(capacity_per_shard or default_expr_capacity_per_shard(
+        ts, gmaxes, n_shards), local_total)
+    first = issue(first_active, first_cap)
+
+    def collect() -> List[Tuple[np.ndarray, Dict]]:
+        results: Dict[int, Tuple[np.ndarray, Dict]] = {}
+        active, cap, joined = first_active, first_cap, first
+        while True:
+            fetched = _fetch_joined(joined, _expr_join(len(joined[0][0])))
+            out, rerun = _expr_shard_results(
+                fetched, list(enumerate(active)), sub_keys, expr_width=total,
+                capacity_per_shard=cap, n_shards=n_shards,
+                batch_size=len(active))
+            results.update(out)
+            if not rerun:
+                return [results[qi] for qi in range(len(ordered))]
+            active = rerun
+            cap = local_total  # one re-run at the local total: no overflow
+            EXEC_COUNTERS.bump("expr_rerun_calls")
+            joined = issue(active, cap)
+
+    return PendingBatch(n_queries=len(ordered), handles=first,
+                        ready=_events(first), _collect=collect)
+
+
+def dispatch_expr_mesh2d_batch(
+    queries: Sequence[Sequence[ReplicatedDeviceSet]],
+    eshape,
+    topology,
+    capacity_per_shard: Optional[int] = None,
+    sub_keys: Optional[Sequence[Sequence]] = None,
+) -> PendingBatch:
+    """Enqueue the first 2-D pass of an expression bucket: the expression
+    twin of :func:`dispatch_mesh2d_batch` (each replica row runs its slice
+    z-sharded over its row mesh, or the plain pass on its device when
+    ``shards == 1``).  ``expr_calls`` counts one per pass; stats add
+    ``n_replicas`` and ``replica``."""
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    n_replicas, n_shards = topology.replicas, topology.shards
+    axis = topology.shard_axis
+    if n_replicas & (n_replicas - 1):
+        raise ValueError("the data axis must be a power of two")
+    ordered = [list(q) for q in queries]
+    ts, gmaxes = _expr_mesh_signature(ordered, n_shards)
+    total = expr_total_width(ts, gmaxes)
+    local_total = total // n_shards
+
+    def issue(active: List[int], cap: int):
+        slice_len, layout = _mesh2d_rows(n_replicas, len(active))
+        EXEC_COUNTERS.bump("expr_calls")
+        handles = {}
+        for rr, lo, hi in layout:
+            rows = [[ordered[i][j].row(rr) for i in active[lo:hi]]
+                    for j in range(len(ts))]
+            if n_shards > 1:
+                mesh = topology.row_mesh(rr)
+                _note_specialization("expr_traces", _expr_sharded_spec(
+                    mesh, eshape, ts, gmaxes, cap, slice_len))
+                handles[rr] = _eval_expr_sharded_batch(
+                    [[_shard_parts(s, mesh, axis) for s in per] for per in rows],
+                    eshape, mesh.axis_devices(axis), cap)
+            else:
+                dev = _row_device(topology, rr, [s for per in rows for s in per])
+                _note_specialization("expr_traces", _expr_spec(
+                    dev, eshape, ts, gmaxes, cap, slice_len))
+                with _on(dev):
+                    root, r, maxc, over, subs = _eval_expr_batch(
+                        [[s.vals for s in per] for per in rows], eshape, cap)
+                out = (root, r, maxc, over, *subs)
+                handles[rr] = _join_shards([out], [dev], _expr_join(len(out)))
+        return handles, slice_len
+
+    first_active = list(range(len(ordered)))
+    first_cap = min(capacity_per_shard or default_expr_capacity_per_shard(
+        ts, gmaxes, n_shards), local_total)
+    first_handles, first_slice = issue(first_active, first_cap)
+
+    def collect() -> List[Tuple[np.ndarray, Dict]]:
+        results: Dict[int, Tuple[np.ndarray, Dict]] = {}
+        active, cap = first_active, first_cap
+        handles, slice_len = first_handles, first_slice
+        while True:
+            rerun = []
+            for rr, joined in handles.items():
+                fetched = _fetch_joined(joined, _expr_join(len(joined[0][0])))
+                lo = rr * slice_len
+                rows = [(local, active[lo + local])
+                        for local in range(fetched[0].shape[0])]
+                out, more = _expr_shard_results(
+                    fetched, rows, sub_keys, expr_width=total,
+                    capacity_per_shard=cap, n_shards=n_shards,
+                    n_replicas=n_replicas, replica=rr, batch_size=len(active))
+                results.update(out)
+                rerun += more
+            if not rerun:
+                return [results[qi] for qi in range(len(ordered))]
+            active = rerun
+            cap = local_total  # one re-run at the local total: no overflow
+            EXEC_COUNTERS.bump("expr_rerun_calls")
+            handles, slice_len = issue(active, cap)
+
+    return PendingBatch(
+        n_queries=len(ordered), handles=first_handles,
+        ready=[e for joined in first_handles.values() for e in _events(joined)],
+        _collect=collect)
+
+
+def intersect_expr_sharded_batch(queries, eshape, mesh: Mesh,
+                                 axis: str = SHARD_AXIS,
+                                 capacity_per_shard: Optional[int] = None,
+                                 sub_keys: Optional[Sequence[Sequence]] = None
+                                 ) -> List[Tuple[np.ndarray, Dict]]:
+    """A z-sharded expression bucket, synchronously."""
+    return dispatch_expr_sharded_batch(
+        queries, eshape, mesh, axis=axis,
+        capacity_per_shard=capacity_per_shard, sub_keys=sub_keys).collect()
+
+
+def intersect_expr_mesh2d_batch(queries, eshape, topology,
+                                capacity_per_shard: Optional[int] = None,
+                                sub_keys: Optional[Sequence[Sequence]] = None
+                                ) -> List[Tuple[np.ndarray, Dict]]:
+    """A 2-D expression bucket, synchronously."""
+    return dispatch_expr_mesh2d_batch(
+        queries, eshape, topology, capacity_per_shard=capacity_per_shard,
+        sub_keys=sub_keys).collect()
+
+
 # -- count-only suggestion path ----------------------------------------------
 #
 # A suggest bucket is B (probe, candidates) rows of one shape class: every
@@ -871,9 +1720,8 @@ def dispatch_count_batch(
     k_sel = min(int(k), c_tier)
     table = _pack_count_rows(queries, c_tier)
     EXEC_COUNTERS.bump("count_calls")
-    gmaxes = (queries[0][0].gmax, queries[0][1][0].gmax)
-    _note_specialization("count_traces", (
-        "count", str(dev), ts, gmaxes, c_tier, k_sel, _b_tier(len(queries))))
+    _note_specialization("count_traces", _count_spec(
+        dev, ts, _count_gmaxes(queries), c_tier, k_sel, len(queries)))
     pairs = _intersect_count_batch(table, k_sel)
     ready = _record_ready(dev)
     extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts)}
@@ -897,6 +1745,173 @@ def intersect_count_batch(
     return dispatch_count_batch(queries, k, device=device).collect()
 
 
+def _count_spec(dev: torch.device, ts, gmaxes, c_tier: int, k_sel: int,
+                n_rows: int) -> Tuple:
+    """The specialization a count pass of ``n_rows`` rows runs."""
+    return ("count", str(dev), ts, gmaxes, c_tier, k_sel, _b_tier(n_rows))
+
+
+def _count_gmaxes(queries) -> Tuple[int, int]:
+    return queries[0][0].gmax, queries[0][1][0].gmax
+
+
+def _sum_shard_counts(queries, ts: Tuple[int, int], c_tier: int, mesh: Mesh,
+                      axis: str):
+    """A suggest bucket's (B, c_tier) counts summed over the shards of
+    ``mesh``, with each row's real-slot mask.  Shard s counts its z-slices
+    through a pointer table of local mirrors at depths ``t - log2(n)``
+    (``make_count_table`` wants 2^t rows; the alignment shift ``tc - tp``
+    is unchanged), and the partial counts sum on shard 0's device: counts
+    are additive over disjoint z-ranges.  Returns (counts, real, tables);
+    the tables hold the local mirrors until the pass is collected."""
+    devs = mesh.axis_devices(axis)
+    shift = len(devs).bit_length() - 1  # n divides 2^t: a power of two
+    local_ts = (ts[0] - shift, ts[1] - shift)
+    parts = [(_shard_parts(p, mesh, axis),
+              [_shard_parts(c, mesh, axis) for c in cands])
+             for p, cands in queries]
+    total, tables = None, []
+    for s, dev in enumerate(devs):
+        with _on(dev):
+            table = make_count_table(
+                [pp[s][0] for pp, _ in parts],
+                [[cp[s][0] for cp in cps] for _, cps in parts], local_ts,
+                c_tier=c_tier)
+            part = ops.count_block(table).to(devs[0])
+        tables.append(table)
+        total = part if total is None else total + part
+    return total, tables[0].real, tables
+
+
+def _sharded_count_pass(queries, ts, c_tier: int, k_sel: int, mesh: Mesh,
+                        axis: str):
+    """Counts summed over ``mesh``'s shards, then the top-K per row on shard
+    0's device: ((B, k_sel, 2) pairs, their ready event, the tables)."""
+    counts, real, tables = _sum_shard_counts(queries, ts, c_tier, mesh, axis)
+    dev = counts.device
+    with _on(dev):
+        pairs = _top_k_slots(torch.where(real, counts, -1), k_sel)
+        return pairs, _record_ready(dev), tables
+
+
+def dispatch_count_sharded_batch(
+    queries: Sequence[Tuple[DeviceSet, Sequence[DeviceSet]]],
+    k: int,
+    mesh: Mesh,
+    axis: str = SHARD_AXIS,
+) -> PendingBatch:
+    """Enqueue one count-only suggest bucket z-sharded over ``mesh``: the
+    twin of :func:`dispatch_count_batch`, equal to it bit for bit.  Both
+    the probes' and the candidates' 2^t must split over the shards (the
+    planner's routing rule guarantees it).  Counters: ``count_calls`` per
+    pass, ``count_traces`` per first sighting of its specialization on
+    ``mesh``; stats add ``n_shards``."""
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    n_shards = len(mesh.axis_devices(axis))
+    queries = [(p, list(c)) for p, c in queries]
+    ts, c_tier = _count_signature(queries)
+    if (1 << ts[0]) % n_shards or (1 << ts[1]) % n_shards:
+        raise ValueError(f"both z axes (t={ts}) must split over {n_shards} "
+                         "shards")
+    k_sel = min(int(k), c_tier)
+    EXEC_COUNTERS.bump("count_calls")
+    _note_specialization("count_traces", (
+        "count-sharded", mesh, ts, _count_gmaxes(queries), c_tier, k_sel,
+        _b_tier(len(queries))))
+    pairs, ready, tables = _sharded_count_pass(queries, ts, c_tier, k_sel,
+                                               mesh, axis)
+    extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts),
+             "n_shards": n_shards}
+    return PendingBatch(
+        n_queries=len(queries), handles=(pairs, tables), ready=ready,
+        _collect=lambda: _collect_count(pairs, ready, queries, k_sel, extra))
+
+
+def intersect_count_sharded_batch(
+    queries: Sequence[Tuple[DeviceSet, Sequence[DeviceSet]]],
+    k: int,
+    mesh: Mesh,
+    axis: str = SHARD_AXIS,
+) -> List[Tuple[np.ndarray, Dict]]:
+    """A z-sharded suggest bucket, synchronously (see
+    :func:`intersect_count_batch`)."""
+    return dispatch_count_sharded_batch(queries, k, mesh, axis=axis).collect()
+
+
+def dispatch_count_mesh2d_batch(
+    queries: Sequence[Tuple[ReplicatedDeviceSet,
+                            Sequence[ReplicatedDeviceSet]]],
+    k: int,
+    topology,
+) -> PendingBatch:
+    """Enqueue one suggest bucket over a 2-D topology: the count twin of
+    :func:`dispatch_mesh2d_batch`.  Each replica row runs its contiguous
+    slice, z-sharded over its row mesh (the plain count pass on its device
+    when ``shards == 1``), every row issued before any is collected.
+    Counters: ``count_calls`` and ``mesh2d_row_dispatches`` per row run;
+    stats add ``n_shards``, ``n_replicas`` and ``replica``."""
+    if not len(queries):
+        return PendingBatch(n_queries=0, _collect=lambda: [])
+    n_replicas, n_shards = topology.replicas, topology.shards
+    axis = topology.shard_axis
+    queries = [(p, list(c)) for p, c in queries]
+    ts, c_tier = _count_signature(queries)
+    if (1 << ts[0]) % n_shards or (1 << ts[1]) % n_shards:
+        raise ValueError(f"both z axes (t={ts}) must split over {n_shards} "
+                         "shards")
+    k_sel = min(int(k), c_tier)
+    gmaxes = _count_gmaxes(queries)
+    slice_len, layout = _mesh2d_rows(n_replicas, len(queries))
+    handles = {}
+    for rr, lo, hi in layout:
+        rows = [(p.row(rr), [c.row(rr) for c in cands])
+                for p, cands in queries[lo:hi]]
+        EXEC_COUNTERS.bump_many({"count_calls": 1, "mesh2d_row_dispatches": 1})
+        if n_shards > 1:
+            mesh = topology.row_mesh(rr)
+            _note_specialization("count_traces", (
+                "count-sharded", mesh, ts, gmaxes, c_tier, k_sel, slice_len))
+            handles[rr] = _sharded_count_pass(rows, ts, c_tier, k_sel, mesh,
+                                              axis)
+        else:
+            dev = _row_device(topology, rr, [s for p, cands in rows
+                                             for s in (p, *cands)])
+            _note_specialization("count_traces", _count_spec(
+                dev, ts, gmaxes, c_tier, k_sel, slice_len))
+            with _on(dev):
+                table = _pack_count_rows(rows, c_tier)
+                pairs = _intersect_count_batch(table, k_sel)
+                handles[rr] = (pairs, _record_ready(dev), [table])
+    extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts),
+             "n_shards": n_shards, "n_replicas": n_replicas}
+
+    def collect() -> List[Tuple[np.ndarray, Dict]]:
+        fetched = {rr: _to_host([pairs], ready)[0]
+                   for rr, (pairs, ready, _) in handles.items()}
+        out = []
+        for qi, (_, cands) in enumerate(queries):
+            rr, row = divmod(qi, slice_len)
+            out.append((fetched[rr][row], {
+                "n_cands": len(cands), "k_sel": k_sel,
+                "batch_size": len(queries), **extra, "replica": rr}))
+        return out
+
+    return PendingBatch(n_queries=len(queries), handles=handles,
+                        ready=[ready for _, ready, _ in handles.values()],
+                        _collect=collect)
+
+
+def intersect_count_mesh2d_batch(
+    queries: Sequence[Tuple[ReplicatedDeviceSet,
+                            Sequence[ReplicatedDeviceSet]]],
+    k: int,
+    topology,
+) -> List[Tuple[np.ndarray, Dict]]:
+    """A 2-D suggest bucket, synchronously."""
+    return dispatch_count_mesh2d_batch(queries, k, topology).collect()
+
+
 def pow2_tiers(up_to: int) -> Tuple[int, ...]:
     """All power-of-two batch tiers ``(1, 2, 4, ..., up_to)``: warming
     these covers every partial-flush size in ``[1, up_to]``."""
@@ -910,71 +1925,155 @@ def warm_executables(
     b_tiers: Sequence[int] = (1,),
     capacity: Optional[int] = None,
     device: Device = "cuda",
+    mesh: Optional[Mesh] = None,
+    axis: str = SHARD_AXIS,
+    topology=None,
 ) -> int:
     """Run one query row per shape signature at every batch tier, so the
     first live bucket of up to ``b`` queries meets a specialization already
     seen (tier ``b`` covers live buckets of size in ``(b/2, b]``).  On the
     card this also builds the kernel library and grows the caching
-    allocator before live traffic.  Results are discarded.  Bumps
-    ``warm_executions`` once per (row, tier) and returns that count."""
+    allocator before live traffic.  With ``mesh`` the rows (z-sharded
+    mirrors) run the sharded pass, with ``topology`` the 2-D pass
+    (:class:`ReplicatedDeviceSet` rows; one run covers every replica row it
+    dispatches), ``capacity`` then being the per-shard capacity.  Results
+    are discarded.  Bumps ``warm_executions`` once per (row, tier) and
+    returns that count."""
     issued = 0
     for row in representatives:
         for b in b_tiers:
             if b < 1 or b & (b - 1):
                 raise ValueError("b_tiers must be powers of two")
-            intersect_device_batch([list(row)] * b, capacity=capacity,
-                                   device=device)
+            _run_flat([list(row)] * b, capacity, device, mesh=mesh,
+                      axis=axis, topology=topology)
             EXEC_COUNTERS.bump("warm_executions")
             issued += 1
     return issued
 
 
-def _warm_rerun(row: Sequence[DeviceSet], capacity: Optional[int],
-                b_tiers: Sequence[int], device: Device) -> None:
-    """Run ``row`` at capacity G at each tier of ``b_tiers`` whose re-run
-    specialization is still unseen, bumping ``warm_reruns`` per pass.
+def _run_flat(rows, capacity: Optional[int], device: Device,
+              mesh: Optional[Mesh] = None, axis: str = SHARD_AXIS,
+              topology=None) -> None:
+    """One point bucket through the pass its layout routes to."""
+    if topology is not None:
+        intersect_mesh2d_batch(rows, topology, capacity_per_shard=capacity)
+    elif mesh is not None:
+        intersect_sharded_batch(rows, mesh, axis=axis,
+                                capacity_per_shard=capacity)
+    else:
+        intersect_device_batch(rows, capacity=capacity, device=device)
 
-    A live bucket re-runs its overflowing queries at capacity G.  When the
-    representative fitted its capacity, warming did not run that re-run,
-    so a sibling of its signature that overflows would meet it unseen.
-    (The JAX package's warming stops before this pass.)"""
-    dev = resolve_device(device)
+
+def _warm_rerun(row: Sequence[DeviceSet], capacity: Optional[int],
+                b_tiers: Sequence[int], device: Device,
+                mesh: Optional[Mesh] = None, axis: str = SHARD_AXIS,
+                topology=None) -> None:
+    """Run ``row`` at its re-run's capacity (G; the local group count
+    G / n on a mesh, ``capacity`` then being per shard) at each tier of
+    ``b_tiers`` whose re-run specializations are not all seen yet, bumping
+    ``warm_reruns`` per pass.
+
+    A live bucket re-runs its overflowing queries at that capacity.  When
+    the representative fitted its capacity, warming did not run the
+    re-run, so a sibling of its signature that overflows would meet it
+    unseen.  (The JAX package's warming stops before this pass.)"""
     ordered = sorted(row, key=set_sort_key)
     ts, gmaxes = _signature(ordered)
-    G = 1 << ts[-1]
-    if (capacity or default_capacity(ts)) >= G:
+    m, w = ordered[0].m, ordered[0].w
+    if topology is not None:
+        n_shards = topology.shards
+    else:
+        n_shards = 1 if mesh is None else len(mesh.axis_devices(axis))
+    g_rerun = (1 << ts[-1]) // n_shards
+    if mesh is None and topology is None:
+        dev = resolve_device(device)
+        first = capacity or default_capacity(ts)
+    else:
+        first = min(capacity or default_capacity_per_shard(ts, n_shards),
+                    g_rerun)
+    if first >= g_rerun:
         return  # no re-run: the first pass already holds every group
     for b in b_tiers:
-        if _seen_specialization(_batch_spec(dev, ts, gmaxes, ordered[0].m,
-                                            ordered[0].w, G, b)):
+        if topology is not None:
+            slice_len, layout = _mesh2d_rows(topology.replicas, b)
+            specs = [_mesh2d_spec(topology, rr, ts, gmaxes, m, w, g_rerun,
+                                  slice_len) for rr, _, _ in layout]
+        elif mesh is not None:
+            specs = [_sharded_spec("sharded_traces", mesh, ts, gmaxes, m, w,
+                                   g_rerun, b)]
+        else:
+            specs = [_batch_spec(dev, ts, gmaxes, m, w, g_rerun, b)]
+        if all(map(_seen_specialization, specs)):
             continue
-        intersect_device_batch([list(row)] * b, capacity=G, device=device)
+        _run_flat([list(row)] * b, g_rerun, device, mesh=mesh, axis=axis,
+                  topology=topology)
         EXEC_COUNTERS.bump("warm_reruns")
 
 
 def _warm_expr_rerun(row: Sequence[DeviceSet], eshape,
                      capacity: Optional[int], b_tiers: Sequence[int],
-                     device: Device) -> None:
+                     device: Device, mesh: Optional[Mesh] = None,
+                     axis: str = SHARD_AXIS, topology=None) -> None:
     """The expression form of :func:`_warm_rerun`: run ``row`` at the total
-    leaf width (an overflowing query's re-run capacity) at each tier of
-    ``b_tiers`` whose re-run specialization is still unseen, bumping
-    ``warm_reruns`` per pass."""
-    dev = resolve_device(device)
+    leaf width (its local share on a mesh), an overflowing query's re-run
+    capacity, at each tier of ``b_tiers`` whose re-run specializations are
+    not all seen yet, bumping ``warm_reruns`` per pass."""
     ts, gmaxes = _expr_signature(row)
-    total = expr_total_width(ts, gmaxes)
-    if min(capacity or default_expr_capacity(ts, gmaxes), total) >= total:
+    if topology is not None:
+        n_shards = topology.shards
+    else:
+        n_shards = 1 if mesh is None else len(mesh.axis_devices(axis))
+    total = expr_total_width(ts, gmaxes) // n_shards
+    if mesh is None and topology is None:
+        dev = resolve_device(device)
+        first = min(capacity or default_expr_capacity(ts, gmaxes), total)
+    else:
+        first = min(capacity or default_expr_capacity_per_shard(
+            ts, gmaxes, n_shards), total)
+    if first >= total:
         return  # no re-run: the first pass already runs at the total width
     for b in b_tiers:
-        if _seen_specialization(_expr_spec(dev, eshape, ts, gmaxes, total, b)):
+        if topology is not None:
+            slice_len, layout = _mesh2d_rows(topology.replicas, b)
+            specs = [_expr_sharded_spec(topology.row_mesh(rr), eshape, ts,
+                                        gmaxes, total, slice_len)
+                     if n_shards > 1 else
+                     _expr_spec(resolve_device(topology.replica_device(rr)),
+                                eshape, ts, gmaxes, total, slice_len)
+                     for rr, _, _ in layout]
+        elif mesh is not None:
+            specs = [_expr_sharded_spec(mesh, eshape, ts, gmaxes, total, b)]
+        else:
+            specs = [_expr_spec(dev, eshape, ts, gmaxes, total, b)]
+        if all(map(_seen_specialization, specs)):
             continue
-        intersect_expr_batch([list(row)] * b, eshape, capacity=total,
-                             device=device)
+        _run_expr([list(row)] * b, eshape, total, device, mesh=mesh,
+                  axis=axis, topology=topology)
         EXEC_COUNTERS.bump("warm_reruns")
+
+
+def _run_expr(rows, eshape, capacity: Optional[int], device: Device,
+              mesh: Optional[Mesh] = None, axis: str = SHARD_AXIS,
+              topology=None) -> None:
+    """One expression bucket through the pass its layout routes to
+    (``capacity`` per shard on a mesh)."""
+    if topology is not None:
+        intersect_expr_mesh2d_batch(rows, eshape, topology,
+                                    capacity_per_shard=capacity)
+    elif mesh is not None:
+        intersect_expr_sharded_batch(rows, eshape, mesh, axis=axis,
+                                     capacity_per_shard=capacity)
+    else:
+        intersect_expr_batch(rows, eshape, capacity=capacity, device=device)
 
 
 def warm_from_plans(plans, get_set: Callable[[object], DeviceSet],
                     top_k: int = 8, b_tiers: Sequence[int] = (1,),
-                    device: Device = "cuda") -> List:
+                    device: Device = "cuda", mesh: Optional[Mesh] = None,
+                    axis: str = SHARD_AXIS,
+                    get_sharded_set: Optional[Callable] = None,
+                    topology=None,
+                    get_replica_set: Optional[Callable] = None) -> List:
     """The warming policy over planned queries: count the device-routed
     shape signatures of ``plans`` (``exec.plan.QueryPlan``s), take the
     ``top_k`` most frequent, and run the first plan of each at every tier
@@ -985,7 +2084,16 @@ def warm_from_plans(plans, get_set: Callable[[object], DeviceSet],
     (``sig.eshape`` set) run the expression pass on the plan's leaves in
     traversal order; count signatures (``sig.cands > 0``) run the count
     pass at their top-K tier.  ``get_set`` maps a planned term to its
-    DeviceSet.  Returns the warmed signatures, most frequent first."""
+    DeviceSet.
+
+    Mesh-routed signatures (``sig.shards > 1``, or ``sig.replicas > 1``
+    with a ``topology``) resolve through ``get_sharded_set`` (falling back
+    to ``get_set``) and run the sharded pass on ``mesh`` or the 2-D pass on
+    ``topology``, at the per-shard capacity the executor derives.  With a
+    topology of several replicas, a single-device signature runs on every
+    replica row (``get_replica_set(r, term)``), since the balancer may
+    place a live bucket on any of them.  Returns the warmed signatures,
+    most frequent first."""
     from collections import Counter
 
     freq = Counter(p.sig for p in plans if p.algorithm == "device")
@@ -994,50 +2102,133 @@ def warm_from_plans(plans, get_set: Callable[[object], DeviceSet],
         if p.algorithm == "device" and p.sig not in rep_terms:
             rep_terms[p.sig] = p.terms
     warmed = [sig for sig, _ in freq.most_common(top_k)]
+    resolve = get_sharded_set or get_set
+    if (topology is not None and topology.replicas > 1
+            and get_replica_set is not None):
+        # one (resolver, device) per replica row
+        placed = [(lambda t, r=r: get_replica_set(r, t),
+                   topology.replica_device(r))
+                  for r in range(topology.replicas)]
+    else:
+        placed = [(get_set, device)]
+    layout = {"mesh": mesh if topology is None else None, "axis": axis,
+              "topology": topology}
     for sig in warmed:
         terms = rep_terms[sig]
+        mesh_routed = sig.shards > 1 or (topology is not None
+                                         and sig.replicas > 1)
         if sig.eshape is not None:
-            row = [get_set(t) for t in terms]
+            if mesh_routed:
+                cap = default_expr_capacity_per_shard(
+                    sig.ts, sig.gmaxes, sig.shards, capacity=sig.capacity_tier)
+                runs = [([resolve(t) for t in terms], device, layout)]
+            else:
+                cap = sig.capacity_tier
+                runs = [([get(t) for t in terms], dev, {})
+                        for get, dev in placed]
             for b in b_tiers:
-                intersect_expr_batch([row] * b, sig.eshape,
-                                     capacity=sig.capacity_tier,
-                                     device=device)
+                for row, dev, where in runs:
+                    _run_expr([row] * b, sig.eshape, cap, dev, **where)
                 EXEC_COUNTERS.bump("warm_executions")
-            _warm_expr_rerun(row, sig.eshape, sig.capacity_tier, b_tiers,
-                             device)
+            for row, dev, where in runs:
+                _warm_expr_rerun(row, sig.eshape, cap, b_tiers, dev, **where)
         elif sig.cands > 0:
-            row = (get_set(terms[0]), [get_set(t) for t in terms[1:]])
+            if mesh_routed:
+                rows = [((resolve(terms[0]), [resolve(t) for t in terms[1:]]),
+                         device)]
+            else:
+                rows = [((get(terms[0]), [get(t) for t in terms[1:]]), dev)
+                        for get, dev in placed]
             for b in b_tiers:
-                intersect_count_batch([row] * b, sig.capacity_tier,
-                                      device=device)
+                for row, dev in rows:
+                    if mesh_routed and topology is not None:
+                        intersect_count_mesh2d_batch([row] * b,
+                                                     sig.capacity_tier,
+                                                     topology)
+                    elif mesh_routed:
+                        intersect_count_sharded_batch([row] * b,
+                                                      sig.capacity_tier, mesh,
+                                                      axis=axis)
+                    else:
+                        intersect_count_batch([row] * b, sig.capacity_tier,
+                                              device=dev)
                 EXEC_COUNTERS.bump("warm_executions")
+        elif mesh_routed:
+            row = [resolve(t) for t in terms]
+            cap = default_capacity_per_shard(sig.ts, sig.shards,
+                                             capacity=sig.capacity_tier)
+            warm_executables([row], b_tiers=b_tiers, capacity=cap, **layout)
+            _warm_rerun(row, cap, b_tiers, device, **layout)
         else:
-            row = [get_set(t) for t in terms]
-            warm_executables([row], b_tiers=b_tiers,
-                             capacity=sig.capacity_tier, device=device)
-            _warm_rerun(row, sig.capacity_tier, b_tiers, device)
+            for get, dev in placed:
+                row = [get(t) for t in terms]
+                warm_executables([row], b_tiers=b_tiers,
+                                 capacity=sig.capacity_tier, device=dev)
+                _warm_rerun(row, sig.capacity_tier, b_tiers, dev)
     return warmed
 
 
 class BatchedEngine:
     """Corpus-level engine: name -> DeviceSet, query bucketing.
 
+    With a 1-D ``mesh``, :meth:`add` also builds a z-sharded mirror of
+    every shardable set (views when the shards share the mirrors' device),
+    and the planner routes queries whose largest set has at least
+    ``shard_min_g`` group tuples through the sharded pass; smaller ones
+    stay on ``device``.  With a 2-D ``topology`` (``exec.topology.
+    Topology``; exclusive with ``mesh``) those queries run the 2-D pass,
+    and single-device buckets go to the least-loaded replica row; the
+    per-row mirrors are built lazily, on first dispatch
+    (:meth:`get_replica_set`, :meth:`get_mesh_set`).
+
     Mutation hooks (:meth:`on_mutate`) fire on every :meth:`add` so owners
     of derived state — the serving layer's result cache — can invalidate.
     """
 
-    def __init__(self, device: Device = "cuda"):
+    def __init__(self, device: Device = "cuda", mesh: Optional[Mesh] = None,
+                 shard_axis: str = SHARD_AXIS, shard_min_g: int = SHARD_MIN_G,
+                 topology=None):
+        if mesh is not None and topology is not None:
+            raise ValueError("pass a 1-D mesh or a 2-D topology, not both")
         self.device = resolve_device(device)
         self.sets: Dict[object, DeviceSet] = {}
+        self.sharded_sets: Dict[object, object] = {}
+        self.mesh = mesh
+        self.topology = topology
+        self.shard_axis = (topology.shard_axis if topology is not None
+                           else shard_axis)
+        self.shard_min_g = shard_min_g
+        # one plain-mirror dict per replica row (none for a single replica,
+        # whose buckets run on ``sets``)
+        self.replica_sets: List[Dict[object, DeviceSet]] = (
+            [{} for _ in range(topology.replicas)]
+            if topology is not None and topology.replicas > 1 else [])
         self.generation = 0
         self._mutation_hooks: List[Callable[[], None]] = []
+
+    @property
+    def n_shards(self) -> int:
+        if self.topology is not None:
+            return self.topology.shards
+        return self.mesh.shape[self.shard_axis] if self.mesh is not None else 1
+
+    @property
+    def n_replicas(self) -> int:
+        return self.topology.replicas if self.topology is not None else 1
 
     def on_mutate(self, hook: Callable[[], None]) -> None:
         """Register a zero-arg callback fired after every index mutation."""
         self._mutation_hooks.append(hook)
 
     def add(self, name, idx: PrefixIndex) -> None:
-        self.sets[name] = DeviceSet.from_host(idx, self.device)
+        ds = DeviceSet.from_host(idx, self.device)
+        self.sets[name] = ds
+        # a replaced term drops its stale mesh and replica mirrors
+        self.sharded_sets.pop(name, None)
+        for mirrors in self.replica_sets:
+            mirrors.pop(name, None)
+        if self.mesh is not None and ds.shardable(self.n_shards):
+            self.sharded_sets[name] = ds.shard(self.mesh, self.shard_axis)
         self.generation += 1
         for hook in self._mutation_hooks:
             hook()
@@ -1048,7 +2239,82 @@ class BatchedEngine:
 
     def query_many(self, queries: Sequence[Sequence]):
         """Plan -> bucket by shape signature -> one pass per bucket ->
-        scatter back in request order.  Returns [(values, stats), ...]."""
+        scatter back in request order.  Returns [(values, stats), ...].
+        With a mesh, large buckets run z-sharded; with a topology they run
+        2-D and small buckets spread over the replicas."""
         from ..exec.batch import execute_name_queries
 
-        return execute_name_queries(self.sets, queries, device=self.device)
+        return execute_name_queries(
+            self.sets, queries, device=self.device, mesh=self.mesh,
+            shard_axis=self.shard_axis, shard_min_g=self.shard_min_g,
+            get_sharded_set=self.get_mesh_set, topology=self.topology,
+            get_replica_set=self.get_replica_set)
+
+    def get_replica_set(self, r: int, name) -> DeviceSet:
+        """``name``'s plain mirror on replica row ``r``'s device, built on
+        first use (only terms that reach a replica pay the copy; on the
+        mirror's own device it is the mirror itself).  The default mirror
+        when the topology has one replica."""
+        if not self.replica_sets:
+            return self.sets[name]
+        mirrors = self.replica_sets[r]
+        if name not in mirrors:
+            mirrors[name] = self.sets[name].place(
+                self.topology.replica_device(r))
+        return mirrors[name]
+
+    def get_mesh_set(self, name):
+        """``name``'s mesh mirror: the z-sharded mirror (``mesh=`` engines,
+        built at :meth:`add`) or the :class:`ReplicatedDeviceSet` (topology
+        engines, built here on first use: one z-sharded mirror per replica
+        row, or the rows' plain mirrors when ``shards == 1``)."""
+        if self.topology is None:
+            return self.sharded_sets[name]
+        if name not in self.sharded_sets:
+            ds = self.sets[name]
+            if not ds.shardable(self.n_shards):
+                raise ValueError(
+                    f"{name!r}: 2^{ds.t} z-groups do not split over "
+                    f"{self.n_shards} shards (the planner never mesh-routes "
+                    "such a set)")
+            if self.n_shards > 1:
+                rows = tuple(ds.shard(self.topology.row_mesh(r),
+                                      self.shard_axis)
+                             for r in range(self.n_replicas))
+            else:
+                rows = tuple(self.get_replica_set(r, name)
+                             for r in range(self.n_replicas))
+            self.sharded_sets[name] = ReplicatedDeviceSet(rows)
+        return self.sharded_sets[name]
+
+    def routing(self) -> Dict:
+        """The keyword arguments that route a bucket through this engine's
+        layout (``exec.batch.dispatch_bucket``, ``execute_plan_buckets``)."""
+        return {"mesh": self.mesh, "shard_axis": self.shard_axis,
+                "get_sharded_set": self.get_mesh_set,
+                "topology": self.topology,
+                "get_replica_set": self.get_replica_set}
+
+    def warm_plans(self, plans, top_k: int = 8,
+                   b_tiers: Sequence[int] = (1,)) -> List:
+        """:func:`warm_from_plans` over this engine's mirrors and layout."""
+        return warm_from_plans(
+            plans, self.sets.__getitem__, top_k=top_k, b_tiers=b_tiers,
+            device=self.device, mesh=self.mesh, axis=self.shard_axis,
+            get_sharded_set=self.get_mesh_set, topology=self.topology,
+            get_replica_set=self.get_replica_set)
+
+    def warm(self, sample_queries: Sequence, top_k: int = 8,
+             b_tiers: Sequence[int] = (1,)) -> List:
+        """Run the hot signatures of a name-keyed sample workload before
+        live traffic: plans the sample with this engine's routing and warms
+        it (:meth:`warm_plans`).  Returns the warmed signatures, most
+        frequent first."""
+        from ..exec.plan import plan_query
+
+        plans = [plan_query(self.sets, q, hashbin_ratio=float("inf"),
+                            mesh_shards=self.n_shards,
+                            mesh_replicas=self.n_replicas,
+                            shard_min_g=self.shard_min_g)
+                 for q in sample_queries]
+        return self.warm_plans(plans, top_k=top_k, b_tiers=b_tiers)

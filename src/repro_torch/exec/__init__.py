@@ -6,8 +6,10 @@ per bucket through ``core.engine`` (:func:`~repro_torch.exec.batch.
 dispatch_bucket` / :class:`~repro_torch.exec.batch.InFlightBucket` split a
 bucket into dispatch now and collect later, which the async front end
 overlaps), :mod:`cache` remembers the results of repeated normalized plans,
-and :mod:`adaptive` learns capacity tiers from observed survivor counts and
-flush budgets from observed arrival rates."""
+:mod:`adaptive` learns capacity tiers from observed survivor counts and
+flush budgets from observed arrival rates, and :mod:`topology` owns the 2-D
+``(data, shard)`` layout: replica placement and the per-replica load
+balancer that the planner's ``(shards, replicas)`` routing targets."""
 from .expr import (
     EMPTY, And, Diff, Expr, Or, Term, canonicalize, eval_host, expr_key,
     expr_shape, flat_terms, leaf_terms, parse, subexpr_keys,
@@ -23,6 +25,7 @@ from .batch import (
     execute_plan_buckets,
 )
 from .cache import ResultCache
+from .topology import ReplicaBalancer, Topology, make_topology
 
 __all__ = [
     "EMPTY",
@@ -53,4 +56,7 @@ __all__ = [
     "execute_name_queries",
     "execute_plan_buckets",
     "ResultCache",
+    "ReplicaBalancer",
+    "Topology",
+    "make_topology",
 ]

@@ -12,6 +12,14 @@ and the results **scattered** back in request order.  Single-query
 ``query`` is a batch of one.  A query is a term list, an
 ``exec.expr.Expr`` or a ``parse`` string (``"(1|2)&3-4"``).
 
+With a 1-D ``mesh`` (``core.engine.make_shard_mesh``) the engines run
+queries whose largest set has at least ``shard_min_g`` group tuples
+z-sharded over it (``rangroupscan/sharded``, ``expr/sharded``,
+``suggest/sharded``); with a 2-D ``topology`` (``exec.topology.
+make_topology``) they run them over its replica rows (``.../mesh2d``) and
+spread single-device buckets over the rows.  On one GPU the mesh lists the
+card several times: ``make_shard_mesh(4, devices=["cuda:0"] * 4)``.
+
 An optional LRU result cache keyed on the normalized plan answers repeated
 queries without touching the device; it also remembers the values of
 canonical subexpressions, so an expression sharing a cached subtree is
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from ..core.engine import (
-    EXEC_COUNTERS, BatchedEngine, gmax_tier, pow2_tiers, warm_from_plans,
+    EXEC_COUNTERS, SHARD_MIN_G, BatchedEngine, gmax_tier, pow2_tiers,
 )
 from ..core.hashing import default_permutation, random_hash_family
 from ..core.intersect import hashbin
@@ -70,12 +78,14 @@ class QueryResult:
     ``latency_us`` is per-query wall time for host paths and the amortized
     ``batch_us`` (bucket wall / bucket size) for device buckets;
     ``algorithm`` names the executed path (``"rangroupscan/device"``,
-    ``"expr/device"``, ``"expr/subcache"``, ``"expr/host"``,
+    ``"rangroupscan/sharded"``, ``"rangroupscan/mesh2d"``, the same three
+    for ``"expr/..."``, ``"expr/subcache"``, ``"expr/host"``,
     ``"hashbin"``, ``"empty"``); device stats include ``r``,
-    ``tuples_survived``, ``capacity``, ``batch_size`` (expression buckets
-    add ``expr_width`` and ``subexprs``); cache hits carry ``{"cached":
-    True}``.  ``doc_ids`` may be shared with the result cache — treat it as
-    immutable.
+    ``tuples_survived``, ``capacity`` (``capacity_per_shard`` on a mesh),
+    ``batch_size`` (expression buckets add ``expr_width`` and
+    ``subexprs``; balancer-placed buckets ``replica``); cache hits carry
+    ``{"cached": True}``.  ``doc_ids`` may be shared with the result cache
+    — treat it as immutable.
     """
 
     doc_ids: np.ndarray
@@ -94,9 +104,15 @@ def _union_sorted(arrays: Sequence[np.ndarray]) -> np.ndarray:
 
 
 def _device_result_name(stats: Dict) -> str:
-    """Executed-path label of a device bucket's result: expression buckets
-    stamp ``expr_width`` in their stats."""
-    return "expr/device" if "expr_width" in stats else "rangroupscan/device"
+    """Executed-path label of a device bucket's result: the 2-D pass stamps
+    ``n_replicas`` (even when 1), the sharded pass ``n_shards > 1``, and
+    expression buckets ``expr_width``."""
+    base = "expr" if "expr_width" in stats else "rangroupscan"
+    if "n_replicas" in stats:
+        return base + "/mesh2d"
+    if stats.get("n_shards", 1) > 1:
+        return base + "/sharded"
+    return base + "/device"
 
 
 class SearchEngine:
@@ -112,17 +128,27 @@ class SearchEngine:
     static G/4 rule: the planner consults the model, the executor feeds it,
     and a tier change invalidates the result cache and re-warms the new
     specialization.
+
+    ``mesh`` (a 1-D ``core.engine.Mesh``) also builds z-sharded mirrors and
+    runs queries whose largest set has at least ``shard_min_g`` group
+    tuples z-sharded over it; ``topology`` (an ``exec.topology.Topology``,
+    exclusive with ``mesh``) runs them over its replica rows and spreads
+    single-device buckets over the rows with its balancer.  ``device``
+    holds the plain mirrors either way.
     """
 
     def __init__(self, postings: Dict[int, np.ndarray], w: int = 256,
                  m: int = 2, seed: int = 0, hashbin_ratio: float = 100.0,
                  result_cache: int = 0, adaptive_capacity=False,
-                 device: Device = "cuda"):
+                 device: Device = "cuda", mesh=None,
+                 shard_min_g: int = SHARD_MIN_G, topology=None):
         self.family = random_hash_family(m, w, seed=seed)
         self.perm = default_permutation(seed)
         self.w, self.m = w, m
         self.hashbin_ratio = hashbin_ratio
-        self.device = BatchedEngine(device=device)
+        self.device = BatchedEngine(device=device, mesh=mesh,
+                                    shard_min_g=shard_min_g,
+                                    topology=topology)
         t0 = time.perf_counter()
         self.index = {
             t: preprocess_prefix(p, w=w, m=m, family=self.family,
@@ -149,11 +175,14 @@ class SearchEngine:
 
     def plan(self, terms) -> QueryPlan:
         """Normalize and route one query (dedup, §3.4 policy, shape sig,
-        learned capacity tier when an adaptive model is attached).
-        ``terms`` is a term sequence, an ``exec.expr.Expr`` or a ``parse``
-        string."""
+        mesh routing when a mesh or topology is attached, learned capacity
+        tier when an adaptive model is attached).  ``terms`` is a term
+        sequence, an ``exec.expr.Expr`` or a ``parse`` string."""
         return plan_query(self.index, terms, hashbin_ratio=self.hashbin_ratio,
-                          capacity_model=self.capacity_model)
+                          capacity_model=self.capacity_model,
+                          mesh_shards=self.device.n_shards,
+                          mesh_replicas=self.device.n_replicas,
+                          shard_min_g=self.device.shard_min_g)
 
     def _on_tier_promotion(self, key, old_tier: int, new_tier: int) -> None:
         """Capacity-tier change hook (fired by the CapacityModel, for
@@ -170,8 +199,7 @@ class SearchEngine:
         plan = self.plan(spec)  # re-plans at the new tier
         if plan.algorithm != "device":
             return
-        warm_from_plans([plan], self.device.sets.__getitem__, top_k=1,
-                        b_tiers=b_tiers, device=self.device.device)
+        self.device.warm_plans([plan], top_k=1, b_tiers=b_tiers)
         if plan.sig not in self.warmed_sigs:
             self.warmed_sigs.append(plan.sig)
 
@@ -186,9 +214,8 @@ class SearchEngine:
         warmed signatures, most frequent first, also kept on
         ``warmed_sigs``."""
         plans = [self.plan(q) for q in sample_queries]
-        self.warmed_sigs = warm_from_plans(
-            plans, self.device.sets.__getitem__, top_k=top_k,
-            b_tiers=b_tiers, device=self.device.device)
+        self.warmed_sigs = self.device.warm_plans(plans, top_k=top_k,
+                                                  b_tiers=b_tiers)
         # one representative per warmed signature, for re-warming after an
         # adaptive tier change
         warmed_keys = {adaptive_key(sig) for sig in self.warmed_sigs}
@@ -351,7 +378,7 @@ class SearchEngine:
             by_index = execute_plan_buckets(
                 self.device.sets.__getitem__, device_plans,
                 device=self.device.device,
-                capacity_model=self.capacity_model)
+                capacity_model=self.capacity_model, **self.device.routing())
             for i, plan in device_plans:
                 res, stats = by_index[i]
                 results[i] = QueryResult(res, stats.get("batch_us", 0.0),
@@ -715,7 +742,7 @@ class AsyncSearchEngine(SearchEngine):
             bucket = dispatch_bucket(
                 self.device.sets.__getitem__, sig, items,
                 device=self.device.device,
-                capacity_model=self.capacity_model)
+                capacity_model=self.capacity_model, **self.device.routing())
         except Exception as exc:
             for ticket, _ in live:
                 ticket.resolve_error(
@@ -796,7 +823,8 @@ class SuggestResult:
     ``suggestions`` is the top-K list of ``(set_id, |probe ∩ candidate|)``
     pairs, best-first under the order ``(-count, smallest id)``;
     candidates with no overlap never appear.  ``algorithm`` is
-    ``"suggest/device"`` or ``"suggest/host"``; cache hits carry
+    ``"suggest/device"``, ``"suggest/sharded"``, ``"suggest/mesh2d"`` or
+    ``"suggest/host"``; cache hits carry
     ``{"cached": True}`` in ``stats``.
     """
 
@@ -842,21 +870,31 @@ class SuggestEngine:
 
     ``device`` ("cuda" by default; "cpu" only when asked) holds the set
     mirrors; ``use_device=False`` serves every request on the host with
-    exact numpy counts instead (``"suggest/host"``).  The result cache
-    stores merged answers per ``(set_id, k)`` and is stamped with the
-    index generation, so :meth:`add_set` never lets a stale answer out.
+    exact numpy counts instead (``"suggest/host"``).  ``mesh`` /
+    ``topology`` / ``shard_min_g`` route count buckets whose deeper set
+    has at least ``shard_min_g`` group tuples z-sharded or 2-D, as in
+    :class:`SearchEngine` (``"suggest/sharded"``, ``"suggest/mesh2d"``).
+    The result cache stores merged answers per ``(set_id, k)`` and is
+    stamped with the index generation, so :meth:`add_set` never lets a
+    stale answer out.
     """
 
     def __init__(self, corpus: Dict[int, np.ndarray], w: int = 256,
                  m: int = 2, seed: int = 0, use_device: bool = True,
-                 result_cache: int = 1024, device: Device = "cuda"):
+                 result_cache: int = 1024, device: Device = "cuda",
+                 mesh=None, shard_min_g: int = SHARD_MIN_G, topology=None):
         self.family = random_hash_family(m, w, seed=seed)
         self.perm = default_permutation(seed)
         self.w, self.m = w, m
         self.corpus: Dict[int, np.ndarray] = {}
         self.index: Dict[int, object] = {}
         self.prefilter = CandidateIndex(self.family)
-        self.device = BatchedEngine(device=device) if use_device else None
+        if not use_device and (mesh is not None or topology is not None):
+            raise ValueError("a mesh or topology needs use_device=True")
+        self.device = (BatchedEngine(device=device, mesh=mesh,
+                                     shard_min_g=shard_min_g,
+                                     topology=topology)
+                       if use_device else None)
         self.cache = ResultCache(result_cache)
         if self.device:
             self.device.on_mutate(self.cache.bump_generation)
@@ -894,8 +932,13 @@ class SuggestEngine:
     def _plans_for(self, set_id: int, k: int) -> List[QueryPlan]:
         """Pre-filter and per-class plans of one request."""
         cands = self.prefilter.candidates(self.corpus[set_id], exclude=set_id)
+        dev = self.device
         return [plan_suggest(self.index, set_id, class_cands, k,
-                             device=self.device is not None)
+                             device=dev is not None,
+                             mesh_shards=dev.n_shards if dev else 1,
+                             mesh_replicas=dev.n_replicas if dev else 1,
+                             shard_min_g=dev.shard_min_g if dev
+                             else SHARD_MIN_G)
                 for class_cands in self._classes(cands).values()]
 
     @staticmethod
@@ -953,7 +996,8 @@ class SuggestEngine:
                     plans.append((-1, plan))
             req_plans[ri] = plans
         by_index = (execute_plan_buckets(self.device.sets.__getitem__, flat,
-                                         device=self.device.device)
+                                         device=self.device.device,
+                                         **self.device.routing())
                     if flat else {})
         for ri, (set_id, k) in enumerate(requests):
             if results[ri] is not None:
@@ -972,7 +1016,8 @@ class SuggestEngine:
                 cands = plan.terms[1:]
                 per_class.append([(cands[int(idx)], int(count))
                                   for idx, count in pairs if count >= 1])
-                algorithm = "suggest/device"
+                algorithm = "suggest" + _device_result_name(
+                    cstats).removeprefix("rangroupscan")
                 batch_us += cstats.get("batch_us", 0.0)
                 stats["n_cands"] = stats.get("n_cands", 0) + cstats["n_cands"]
             suggestions = self._merge(per_class, int(k))
@@ -993,9 +1038,8 @@ class SuggestEngine:
         if self.device is None:
             raise ValueError("warming is a device-path concept")
         plans = [p for sid in sample_ids for p in self._plans_for(sid, k)]
-        self.warmed_sigs = warm_from_plans(
-            plans, self.device.sets.__getitem__, top_k=len(plans) or 1,
-            b_tiers=b_tiers, device=self.device.device)
+        self.warmed_sigs = self.device.warm_plans(
+            plans, top_k=len(plans) or 1, b_tiers=b_tiers)
         return self.warmed_sigs
 
 

@@ -412,7 +412,10 @@ def test_warming_differs_from_jax_only_by_the_rerun_pass():
     G.  Both packages run the same ``warm_executions``; the port adds one
     ``warm_reruns`` pass at capacity G per tier, so serving [2, 3] then
     traces nothing, where the JAX package traces its re-run once.  Answers
-    and stats stay equal (tolerance 0)."""
+    and stats stay equal (tolerance 0).  The sharded and 2-D arms keep the
+    same difference at the local group count:
+    ``test_*_warming_differs_from_jax_only_by_the_rerun_pass`` in
+    ``tests/test_torch_sharded.py`` and ``tests/test_torch_mesh2d.py``."""
     from repro.core.engine import clear_exec_jit_cache
 
     rng = np.random.default_rng(11)

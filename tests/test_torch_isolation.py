@@ -1,5 +1,6 @@
 """The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package.
+neither JAX nor anything of the JAX package, and its 2-D topology
+(``repro_torch.exec.topology``) runs with both refused.
 
 A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 ``repro`` and ``repro.*`` (but not ``repro_torch``) and imports every
@@ -59,6 +60,50 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"}
     assert expected <= imported, expected - imported
+
+
+TOPOLOGY_PROBE = r"""
+import sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+from repro_torch.exec.topology import make_topology
+from repro_torch.serve.search import SearchEngine
+
+rng = np.random.default_rng(0)
+shared = rng.choice(1 << 20, 300, replace=False).astype(np.uint32)
+postings = {t: np.unique(np.concatenate(
+    [shared, rng.choice(1 << 20, 3000, replace=False).astype(np.uint32)]))
+    for t in range(3)}
+eng = SearchEngine(postings, device="cpu", shard_min_g=4,
+                   topology=make_topology(2, 2, devices=["cpu"] * 4))
+got = eng.query([0, 1, 2])
+want = np.intersect1d(np.intersect1d(postings[0], postings[1]), postings[2])
+assert got.algorithm == "rangroupscan/mesh2d", got.algorithm
+assert np.array_equal(got.doc_ids, want)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not loaded, loaded
+print("TOPOLOGY_OK")
+"""
+
+
+def test_topology_runs_with_jax_and_repro_blocked():
+    """``repro_torch.exec.topology`` imports, and a 2x2 layout over four
+    logical CPU devices answers a query, with JAX and the JAX package
+    refused."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", TOPOLOGY_PROBE],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "TOPOLOGY_OK" in proc.stdout
 
 
 def _imports(path: pathlib.Path):
