@@ -135,6 +135,50 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                prints queries/s and probes/s sharded against
                single-device, timed in turns on the card (a measurement,
                not a check).
+ 12. observability and the load harness — phase 4's index again (lists
+               shared, mirrors anew), a pool of 64 ``QueryMix`` draws over
+               its 16 terms (seed 0), ``AsyncSearchEngine(flush_tier=8,
+               deadline_us=2000, max_inflight=8)``, cache off, warmed on
+               the pool at tiers 1-8:
+               12a ``calibrate_cost`` on the pool's modal signature at tier
+                   8, printing the ``CostModel`` and ``capacity_qps(8)``;
+               12b ``run_virtual`` at 0.5x and 1.5x of that capacity (2 s,
+                   diurnal +-50% with a 1 s period, two 20-query bursts a
+                   second, seed 1): every answer equals the oracle, a
+                   serve-time trace only in a bucket the backlog grew past
+                   the warmed tiers, burn at 1.5x above 0 and above 0.5x's;
+               12c ``run_wallclock`` with 4 submitters at 0.5x for 3 s on a
+                   metrics-only engine (``Obs(trace=False)``) and a traced
+                   one (``Obs(trace=True)``, same mirrors), in turns
+                   (metrics, traced, traced, metrics), snapshots every
+                   0.25 s: every answer equals the oracle, no thread
+                   survives, one closed ``request`` root per ticket and no
+                   open span, every ``bucket`` span with its ``dispatch`` /
+                   ``device`` / ``collect`` children, a consistent snapshot
+                   through both expositions, a non-empty ring; prints
+                   served against offered queries/s, waits, end-to-end
+                   latency, the traced/metrics ratio of served queries/s,
+                   span medians by stage and the flusher's oversleep (how
+                   long after its deadline a deadline-flushed bucket was
+                   picked up), all on the host clock; then one more traced
+                   run at 0.1x (base and burst rate scaled by 0.2), below
+                   saturation, where the oversleep is the flusher's wake;
+               12d ``calibrate_from_profile`` of the traced engine's
+                   profile beside 12a's model; every bucket's signature
+                   has residuals;
+               12e a traced ``SuggestEngine`` on phase 8's corpus and 64
+                   probes: every answer equals the scipy oracle, one closed
+                   root per request, ``pair_count`` launched.
+ 13. the host route — 13a ``SearchEngine(use_device=False)`` on phase 4's
+               lists serves phase 4's first 64 queries, the planted pair and
+               the HashBin pair (RanGroupScan and HashBin in numpy): every
+               answer equals the oracle and phase 4's, no kernel launches,
+               ``torch.cuda.memory_allocated()`` unchanged; prints host
+               queries/s; 13b ``examples/quickstart.py``'s sets through
+               RanGroupScan (both recoveries), RanGroup, HashBin, IntGroup
+               (both recoveries) and the seven baselines, all equal to
+               ``np.intersect1d``, the low-bits, gamma and delta round
+               trips, and ``space_report``.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -148,10 +192,12 @@ clock``, ``async 9b flusher`` (its ``query_batch`` baseline excluded) and
 expressions`` and ``async 10b expressions``, ``11a sharded query_batch``,
 ``AsyncSearchEngine.warm 2x2``, ``async 11b 2x2``, ``11c sharded
 suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
-baselines excluded).  The last lines are the kernel
-table as JSON (each
-kernel's ``launches`` on its main path, phase 4 or 7, and
-``launches_by_path``) and ``{"ok": true, "device": {...}}``.  ``--report``
+baselines excluded), ``async 12b virtual 0.5x`` / ``1.5x``, ``async 12c
+metrics`` / ``traced`` (the first run of each), ``async 12c traced low``
+and ``12e traced suggest_batch``; 13a's count, 0 for every kernel, prints apart.  The
+last lines are the kernel table as JSON (each kernel's ``launches`` on
+its main path, phase 4 or 7, and ``launches_by_path``) and ``{"ok": true,
+"device": {...}}``.  ``--report``
 writes a fuller JSON report (every count, time and profile row) to PATH.
 """
 from __future__ import annotations
@@ -227,6 +273,22 @@ SHARDED_FORCED_CAP = 16      # 11a: the planted pair must re-run once
 MESH_QUERIES = 64            # 11b: phase 4's first 64 queries + the planted
 MESH_FLUSH_TIER = 4          # pair, warmed at tiers 1-4
 MESH_PROBES = 64             # 11c: phase 7's first 64 probes
+
+# -- observability and the load harness on phase 4's index (phase 12) ----------
+OBS_POOL = 64                # QueryMix draws over phase 4's 16 terms, seed 0
+OBS_FLUSH_TIER = 8           # flush tier, warmed at pow2_tiers(8)
+OBS_DEADLINE_US = 2000.0
+OBS_INFLIGHT = 8
+OBS_VIRTUAL_RATES = (0.5, 1.5)   # 12b: of the calibrated tier-8 capacity
+OBS_WALL_RATE = 0.5          # 12c: run_wallclock at 0.5x for 3 s
+OBS_WALL_S = 3.0
+OBS_LOW_SCALE = 0.2          # 12c: one more traced run, the shape scaled to
+                             # 0.1x (base and burst rate): the flusher's wake
+OBS_SUBMITTERS = 4
+OBS_SNAPSHOT_S = 0.25
+
+# -- the host route on phase 4's lists (phase 13) -------------------------------
+HOST_QUERIES = 64            # 13a: phase 4's first 64 + planted + HashBin pair
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -1230,18 +1292,21 @@ class SimClock:
         return self.t
 
 
-def async_engine(base, device, cls=None, **kw):
+def async_engine(base, device, cls=None, mirrors=None, **kw):
     """An ``AsyncSearchEngine`` (or another ``cls`` of search engine) over
     ``base``'s index.  The PrefixIndexes preprocessed in phase 4 are shared
     (preprocessing the 40.3M elements again takes about a minute); the
-    device mirrors are built anew."""
+    device mirrors are built anew, or taken from the engine ``mirrors``."""
     from repro_torch.serve.search import AsyncSearchEngine
 
     eng = (cls or AsyncSearchEngine)({}, w=W_BITS, m=M_IMAGES, seed=SEED,
                                      device=device, **kw)
     for term, idx in base.index.items():
         eng.index[term] = idx
-        eng.device.add(term, idx)
+        if mirrors is None:
+            eng.device.add(term, idx)
+    if mirrors is not None:
+        eng.device = mirrors.device
     return eng
 
 
@@ -2246,6 +2311,469 @@ def run_sharded(torch, engine, results, main_log, planted, suggest,
     report["sharded"] = out
     return paths
 
+# -- phase 12: observability and the load harness -------------------------------
+
+def obs_shape(qps: float, duration_s: float):
+    """Phase 12's open-loop traffic at ``qps``: a diurnal swing of +-50% with
+    a 1 s period and two 20-query bursts a second, 20 ms wide."""
+    from repro_torch.serve.loadgen import TrafficShape
+
+    return TrafficShape(base_qps=qps, duration_s=duration_s,
+                        diurnal_amplitude=0.5, diurnal_period_s=1.0,
+                        burst_rate_hz=2.0, burst_size=20.0,
+                        burst_width_s=0.02)
+
+
+def check_snapshot(snap, n_tickets: int, what: str) -> None:
+    """A registry snapshot is one consistent cut: every histogram's bucket
+    counts sum to its count, every ticket waited once, every collect was
+    timed once; and it survives both expositions."""
+    from repro_torch.obs import (
+        parse_json, parse_prometheus, to_json, to_prometheus,
+    )
+
+    hists = snap["histograms"]
+    for name, h in hists.items():
+        require(sum(h["counts"]) == h["count"],
+                f"{what}: {name} bucket counts do not sum to its count")
+    require(hists["queue_wait_us"]["count"] == n_tickets,
+            f"{what}: {hists['queue_wait_us']['count']} waits for "
+            f"{n_tickets} tickets")
+    collects = snap["collected"]["exec_inflight_collects"]
+    require(hists["collect_latency_us"]["count"] == collects,
+            f"{what}: {hists['collect_latency_us']['count']} collect "
+            f"latencies for {collects} collects")
+    parsed = parse_prometheus(to_prometheus(snap))
+    require(parsed["repro_queue_wait_us"]["count"] == n_tickets
+            and parsed["repro_exec_inflight_collects"]["value"] == collects
+            and parsed["repro_bucket_batch_size"]["buckets"][-1][1]
+            == hists["bucket_batch_size"]["count"],
+            f"{what}: the Prometheus round trip lost values")
+    require(parse_json(to_json(snap)) == snap,
+            f"{what}: the JSON round trip changed the snapshot")
+
+
+def traced_stats(obs, entries, flush_tier: int, what: str) -> dict:
+    """Checks on a traced run's spans (one closed ``request`` root per
+    ticket, none open, every ``bucket`` with its three stages) and their
+    medians by stage.  The flusher's oversleep: for each bucket flushed by
+    its deadline (fewer rows than the flush tier), how long after the
+    oldest member's deadline the flusher picked it up (the end of that
+    member's ``admission`` span)."""
+    tracer = obs.tracer
+    roots = tracer.finished("request")
+    require(tracer.open_count() == 0,
+            f"{what}: {tracer.open_count()} spans left open")
+    require(len(roots) == len(entries),
+            f"{what}: {len(roots)} request roots for {len(entries)} tickets")
+    require(all(t.span is not None and t.span.end_us is not None
+                for _, t in entries), f"{what}: a ticket without a closed root")
+    buckets = {s.span_id: s for s in tracer.finished("bucket")}
+    stages = {}
+    for s in tracer.finished():
+        if s.parent_id in buckets:
+            stages.setdefault(s.parent_id, set()).add(s.name)
+    require(all(stages.get(b) == {"dispatch", "device", "collect"}
+                for b in buckets), f"{what}: a bucket span lacks a stage")
+    members = {}
+    for _, t in entries:
+        b = t.span.attrs.get("bucket_span")
+        if b is not None:
+            members.setdefault(b, []).append(t)
+    oversleep = []
+    for b, ts in members.items():
+        if buckets[b].attrs["batch"] < flush_tier:
+            oldest = min(ts, key=lambda t: t.deadline_at())
+            oversleep.append(oldest.admission_span.end_us
+                             - oldest.deadline_at() * 1e6)
+    med = {name: float(np.median([s.duration_us
+                                  for s in tracer.finished(name)]))
+           for name in ("admission", "dispatch", "device", "collect")}
+    return {
+        "roots": len(roots), "buckets": len(buckets),
+        "median_us": med, "deadline_buckets": len(oversleep),
+        "oversleep_p50_us": (float(np.percentile(oversleep, 50))
+                             if oversleep else None),
+        "oversleep_p99_us": (float(np.percentile(oversleep, 99))
+                             if oversleep else None),
+        "dropped": tracer.dropped,
+    }
+
+
+def run_observability(torch, engine, postings, report,
+                      device="cuda") -> dict:
+    """Phase 12 on phase 4's index (its preprocessed lists shared, mirrors
+    built anew): 12a ``calibrate_cost`` on the pool's modal signature, 12b
+    ``run_virtual`` at 0.5x and 1.5x of the calibrated capacity, 12c
+    ``run_wallclock`` at 0.5x with a metrics-only and a traced engine in
+    turns, then the traced one at 0.1x, 12d the profile-fit cost model
+    beside 12a's, 12e a traced ``SuggestEngine`` on phase 8's corpus.
+    Returns each path's launches (counts set to 0 just before each run,
+    read just after it)."""
+    from collections import Counter
+
+    from repro_torch.core.engine import EXEC_COUNTERS, pow2_tiers
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+    from repro_torch.obs import Obs
+    from repro_torch.serve.loadgen import (
+        QueryMix, attach_wall_clock, build_schedule, calibrate_cost,
+        calibrate_from_profile, run_virtual, run_wallclock,
+    )
+    from repro_torch.serve.search import SuggestEngine
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    flat_kernels = {"bitmap_filter": bitmap_filter_cuda,
+                    "group_match": group_match_cuda}
+    paths = {}
+
+    def counted(path: str, run, kernels=flat_kernels):
+        for k in kernels.values():
+            k.launches = 0
+        result = run()
+        paths.setdefault(path, {name: k.launches
+                                for name, k in kernels.items()})
+        return result
+
+    out = {"s": {}}
+
+    def done(part: str, since: float) -> float:
+        out["s"][part] = time.perf_counter() - since
+        print(f"phase {part}: {out['s'][part]:.1f} s")
+        return time.perf_counter()
+
+    want = MemoOracle(postings)
+    pool = [tuple(q) for q in QueryMix().sample(
+        range(N_TERMS), OBS_POOL, np.random.default_rng(SEED))]
+    t_part = t0 = time.perf_counter()
+    obs_m = Obs(trace=False)
+    eng = async_engine(engine, device, flush_tier=OBS_FLUSH_TIER,
+                       deadline_us=OBS_DEADLINE_US, max_inflight=OBS_INFLIGHT,
+                       result_cache=0, snapshot_every_s=OBS_SNAPSHOT_S,
+                       obs=obs_m)
+    warmed = eng.warm([list(q) for q in pool], top_k=len(pool),
+                      b_tiers=pow2_tiers(OBS_FLUSH_TIER))
+    sync()
+    warm_s = time.perf_counter() - t0
+
+    # 12a: the cost model from warmed closed-loop buckets
+    plans = [eng.plan(list(q)) for q in pool]
+    modal_sig = Counter(p.sig for p in plans
+                        if p.algorithm == "device").most_common(1)[0][0]
+    modal = [list(p.terms) for p in plans if p.sig == modal_sig]
+    cost = calibrate_cost(eng, (modal * OBS_FLUSH_TIER)[:OBS_FLUSH_TIER],
+                          tier=OBS_FLUSH_TIER)
+    capacity = cost.capacity_qps(OBS_FLUSH_TIER)
+    out["12a"] = {"pool": len(pool), "distinct": len(set(pool)),
+                  "warmed": len(warmed), "warm_s": warm_s,
+                  "modal_sig": repr(modal_sig),
+                  "per_bucket_us": cost.per_bucket_us,
+                  "per_query_us": cost.per_query_us,
+                  "capacity_qps": capacity}
+    print(f"phase 12a pool: {len(pool)} QueryMix draws over {N_TERMS} terms "
+          f"({len(set(pool))} distinct), warmed {len(warmed)} signatures at "
+          f"tiers {pow2_tiers(OBS_FLUSH_TIER)} in {warm_s:.1f} s with the "
+          f"mirrors; calibrate_cost on the modal signature {modal_sig.ts} "
+          f"(k {modal_sig.k}) at tier {OBS_FLUSH_TIER}: {cost}, "
+          f"capacity_qps({OBS_FLUSH_TIER}) {capacity:.1f}")
+    t_part = done("12a", t_part)
+
+    # 12b: the virtual-time replay below and above capacity
+    virtual = {}
+    for x in OBS_VIRTUAL_RATES:
+        sched = build_schedule(obs_shape(x * capacity, 2.0), range(N_TERMS),
+                               seed=SEED + 1, pool=pool)
+        rep, entries = counted(f"async 12b virtual {x}x",
+                               lambda s=sched: run_virtual(eng, s, cost))
+        check_tickets(sched.queries, [t for _, t in entries], want, f"12b {x}x")
+        sizes = [t.value.stats.get("batch_size", 0) for _, t in entries]
+        traces = rep.counters["batch_traces"]
+        # a trace at serve time is a bucket of an unwarmed tier: only
+        # buckets the backlog grew past the warmed tiers may meet one
+        require(traces == 0 or max(sizes) > OBS_FLUSH_TIER,
+                f"12b {x}x: {traces} serve-time traces in buckets of at most "
+                f"{max(sizes)} rows")
+        virtual[x] = rep
+        out[f"12b {x}x"] = {**rep.to_json(), "max_bucket_rows": max(sizes),
+                            "launches": paths[f"async 12b virtual {x}x"]}
+        print(f"phase 12b virtual {x}x: {rep.arrivals} arrivals over "
+              f"{rep.duration_s:.3f} s (virtual), offered "
+              f"{rep.offered_qps:.1f} served {rep.served_qps:.1f} queries/s, "
+              f"burn {rep.burn_rate:.4f} ({rep.burned} of {rep.completed}), "
+              f"p50/p99 wait {rep.p50_wait_us:.1f}/{rep.p99_wait_us:.1f} us, "
+              f"flushes tier {rep.counters['tier_flushes']} deadline "
+              f"{rep.counters['deadline_flushes']}, largest bucket "
+              f"{max(sizes)} rows, serve-time traces {traces}; every answer "
+              f"equals the oracle")
+    lo, hi = (virtual[x].burn_rate for x in OBS_VIRTUAL_RATES)
+    require(hi > 0 and hi > lo,
+            f"12b: burn {hi} at {OBS_VIRTUAL_RATES[1]}x, {lo} at "
+            f"{OBS_VIRTUAL_RATES[0]}x")
+    t_part = done("12b", t_part)
+
+    # 12c: the wall clock, metrics-only and traced engines in turns
+    attach_wall_clock(eng)
+    obs_t = Obs(trace=True, max_finished_spans=1 << 16, cost_model=cost)
+    traced = async_engine(engine, device, flush_tier=OBS_FLUSH_TIER,
+                          deadline_us=OBS_DEADLINE_US,
+                          max_inflight=OBS_INFLIGHT, result_cache=0,
+                          snapshot_every_s=OBS_SNAPSHOT_S, obs=obs_t,
+                          mirrors=eng)
+    sched = build_schedule(obs_shape(OBS_WALL_RATE * capacity, OBS_WALL_S),
+                           range(N_TERMS), seed=SEED + 2, pool=pool)
+    walls = {"metrics": [], "traced": []}
+    for mode in ("metrics", "traced", "traced", "metrics"):
+        target, obs = (eng, obs_m) if mode == "metrics" else (traced, obs_t)
+        obs.reset()
+        rep, entries = counted(
+            f"async 12c {mode}", lambda: run_wallclock(
+                target, sched, submitters=OBS_SUBMITTERS))
+        what = f"12c {mode} run {len(walls[mode]) + 1}"
+        check_tickets(sched.queries, [t for _, t in entries], want, what)
+        require(rep.thread_leak == 0, f"{what}: {rep.thread_leak} threads "
+                                      f"outlived the run")
+        check_snapshot(obs.registry.snapshot(), len(entries), what)
+        require(len(obs.ring) > 0, f"{what}: the snapshot ring is empty")
+        e2e = np.asarray([(t.resolved_at - t.submitted_at) * 1e6
+                          for _, t in entries])
+        run = {**rep.to_json(), "ring": len(obs.ring),
+               "p50_e2e_us": float(np.percentile(e2e, 50)),
+               "p99_e2e_resolved_us": float(np.percentile(e2e, 99))}
+        if mode == "traced":
+            run["spans"] = traced_stats(obs, entries, OBS_FLUSH_TIER, what)
+        else:
+            require(obs.tracer.finished() == [], f"{what}: spans recorded")
+        walls[mode].append(run)
+        spans = run.get("spans", {})
+        print(f"phase 12c {mode}: {rep.arrivals} arrivals in "
+              f"{rep.duration_s:.3f} s, offered {rep.offered_qps:.1f} served "
+              f"{rep.served_qps:.1f} queries/s, p50/p99 wait "
+              f"{rep.p50_wait_us:.0f}/{rep.p99_wait_us:.0f} us, p50/p99 end "
+              f"to end {run['p50_e2e_us']:.0f}/{run['p99_e2e_resolved_us']:.0f}"
+              f" us, burn {rep.burn_rate:.4f}, ring {len(obs.ring)}"
+              + (f"; spans: median us {spans['median_us']}, oversleep p50/p99 "
+                 f"{spans['oversleep_p50_us']}/{spans['oversleep_p99_us']} us "
+                 f"over {spans['deadline_buckets']} deadline-flushed buckets"
+                 if spans else ""))
+    # below saturation, so the oversleep is the flusher's wake, not a queue
+    low_sched = build_schedule(
+        obs_shape(OBS_WALL_RATE * capacity, OBS_WALL_S).scaled(OBS_LOW_SCALE),
+        range(N_TERMS), seed=SEED + 3, pool=pool)
+    obs_t.reset()
+    rep, entries = counted("async 12c traced low", lambda: run_wallclock(
+        traced, low_sched, submitters=OBS_SUBMITTERS))
+    check_tickets(low_sched.queries, [t for _, t in entries], want, "12c traced low")
+    require(rep.thread_leak == 0, "12c traced low: a thread outlived the run")
+    check_snapshot(obs_t.registry.snapshot(), len(entries), "12c traced low")
+    low = {**rep.to_json(),
+           "spans": traced_stats(obs_t, entries, OBS_FLUSH_TIER,
+                                 "12c traced low")}
+    print(f"phase 12c traced low ({OBS_WALL_RATE * OBS_LOW_SCALE}x): "
+          f"{rep.arrivals} arrivals, offered {rep.offered_qps:.1f} served "
+          f"{rep.served_qps:.1f} queries/s, p50/p99 wait "
+          f"{rep.p50_wait_us:.0f}/{rep.p99_wait_us:.0f} us, burn "
+          f"{rep.burn_rate:.4f}; spans: median us {low['spans']['median_us']}"
+          f", oversleep p50/p99 {low['spans']['oversleep_p50_us']}/"
+          f"{low['spans']['oversleep_p99_us']} us over "
+          f"{low['spans']['deadline_buckets']} deadline-flushed buckets")
+    med = {m: float(np.median([r["served_qps"] for r in runs]))
+           for m, runs in walls.items()}
+    spans = [r["spans"] for r in walls["traced"]]
+    over = [s for s in spans if s["oversleep_p50_us"] is not None]
+    out["12c"] = {"runs": walls, "low": low, "served_qps_median": med,
+                  "traced_over_metrics": med["traced"] / med["metrics"],
+                  "schedule": {"arrivals": len(sched),
+                               "offered_qps": sched.offered_qps}}
+    print(f"phase 12c: served queries/s traced over metrics-only "
+          f"{med['traced'] / med['metrics']:.4f} (medians {med}); span "
+          f"medians (us) admission/dispatch/device/collect "
+          f"{[s['median_us'] for s in spans]}; flusher oversleep past the "
+          f"deadline p50/p99 (us) "
+          f"{[(s['oversleep_p50_us'], s['oversleep_p99_us']) for s in over]} "
+          f"(host clock, the card's name and limit printed above); every "
+          f"answer equals the oracle, threads 0, spans 0 open")
+    t_part = done("12c", t_part)
+
+    # 12d: the cost model fit from the traced engine's profile
+    fit = calibrate_from_profile(obs_t.profile)
+    residuals = obs_t.profile.residuals()
+    executed = {s.attrs["sig"] for s in obs_t.tracer.finished("bucket")}
+    require(executed and executed <= set(residuals),
+            f"12d: signatures without a profile: {executed - set(residuals)}")
+    require(all(math.isfinite(r["residual_us"]) for r in residuals.values()),
+            "12d: a residual is not finite")
+    out["12d"] = {"fit": None if fit is None else
+                  {"per_bucket_us": fit.per_bucket_us,
+                   "per_query_us": fit.per_query_us,
+                   "capacity_qps": fit.capacity_qps(OBS_FLUSH_TIER)},
+                  "residuals": residuals}
+    worst = max(residuals.items(), key=lambda kv: abs(kv[1]["mean_residual_us"]))
+    print(f"phase 12d: calibrate_from_profile {fit} beside 12a's {cost}; "
+          f"{len(residuals)} signatures profiled, every bucket's signature "
+          f"among them; largest mean residual {worst[0]} "
+          f"{worst[1]['mean_residual_us']:.0f} us over "
+          f"{worst[1]['buckets']:.0f} buckets")
+    del eng, traced
+    t_part = done("12d", t_part)
+
+    # 12e: a traced SuggestEngine on phase 8's corpus
+    corpus = make_small_corpus()
+    obs_s = Obs(trace=True)
+    s_eng = SuggestEngine(corpus, w=W_BITS, m=M_IMAGES, seed=SEED,
+                          device=device, obs=obs_s)
+    log = zipf_probe_log(corpus, SMALL_PROBES, SEED + 5)
+    oracle_s = SuggestOracle(corpus)
+    oracle_s.prepare(log)
+    results, wall = counted(
+        "12e traced suggest_batch",
+        lambda: serve_suggest(s_eng, log, SUGGEST_K, SUGGEST_BATCH, oracle_s,
+                              clear_cache=True, sync=sync),
+        {"pair_count": count_block_cuda})
+    roots = obs_s.tracer.finished("request")
+    require(len(roots) == len(log) and obs_s.tracer.open_count() == 0,
+            f"12e: {len(roots)} closed roots for {len(log)} requests, "
+            f"{obs_s.tracer.open_count()} open")
+    require(all(s.attrs["kind"] == "suggest" for s in roots),
+            "12e: a root is not a suggest request")
+    routes = Counter(s.attrs.get("route") for s in roots)
+    require(device != "cuda"
+            or paths["12e traced suggest_batch"]["pair_count"] > 0,
+            "12e: pair_count never launched")
+    out["12e"] = {"probes": len(log), "wall_s": wall, "routes": dict(routes),
+                  "buckets": len(obs_s.tracer.finished("bucket"))}
+    print(f"phase 12e traced suggest_batch: {len(log)} probes at k "
+          f"{SUGGEST_K} on phase 8's corpus in {wall:.3f} s, routes "
+          f"{dict(routes)}, {out['12e']['buckets']} bucket spans, "
+          f"{paths['12e traced suggest_batch']['pair_count']} pair_count "
+          f"launches; every answer equals the scipy oracle, one closed root "
+          f"per request")
+    del s_eng
+    done("12e", t_part)
+    out["launches_by_path"] = paths
+    report["observability"] = out
+    return paths
+
+
+# -- phase 13: the host route ----------------------------------------------------
+
+def run_host_route(torch, engine, postings, log, results, report,
+                   device="cuda") -> dict:
+    """Phase 13: 13a ``SearchEngine(use_device=False)`` on phase 4's lists
+    (shared) serves phase 4's first ``HOST_QUERIES`` queries, the planted
+    pair and the HashBin pair: every answer equal to the oracle and to
+    phase 4's device answers, no kernel launched, no device memory taken;
+    13b ``examples/quickstart.py``'s sets through every host algorithm and
+    baseline, against ``np.intersect1d``, and the compression round trips."""
+    from collections import Counter
+
+    from repro_torch.core import baselines, compress, intersect, partition
+    from repro_torch.core.hashing import (
+        default_permutation, random_hash_family,
+    )
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+    from repro_torch.serve.search import SearchEngine
+
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda, "pair_count": count_block_cuda}
+    out = {"s": {}}
+    t_part = time.perf_counter()
+
+    # 13a: the host route on phase 4's lists
+    picks = list(range(HOST_QUERIES)) + [len(log) - 2, len(log) - 1]
+    hlog = [log[i] for i in picks]
+    host = SearchEngine({}, w=W_BITS, m=M_IMAGES, seed=SEED, use_device=False)
+    host.index = engine.index  # phase 4's preprocessed lists
+    want = MemoOracle(postings)
+    for q in hlog:
+        want(q)
+    for k in kernels.values():
+        k.launches = 0
+    mem_before = torch.cuda.memory_allocated() if device == "cuda" else 0
+    t0 = time.perf_counter()
+    got = host.query_batch(hlog)
+    host_s = time.perf_counter() - t0
+    mem_after = torch.cuda.memory_allocated() if device == "cuda" else 0
+    launches = {name: k.launches for name, k in kernels.items()}
+    require(sum(launches.values()) == 0, f"13a: kernels launched {launches}")
+    require(mem_after == mem_before,
+            f"13a: device memory {mem_before} -> {mem_after} bytes")
+    for i, q, r in zip(picks, hlog, got):
+        require(np.array_equal(r.doc_ids, want(q)),
+                f"13a: query {q} disagrees with the oracle")
+        require(np.array_equal(r.doc_ids, results[i].doc_ids),
+                f"13a: query {q} disagrees with phase 4's device answer")
+    algos = dict(Counter(r.algorithm for r in got))
+    require(algos.get("rangroupscan", 0) > 0 and algos.get("hashbin", 0) > 0,
+            f"13a: routes {algos}")
+    out["13a"] = {"queries": len(hlog), "host_s": host_s,
+                  "host_qps": len(hlog) / host_s, "routes": algos,
+                  "launches": launches, "device_bytes": mem_after}
+    print(f"phase 13a SearchEngine(use_device=False) on phase 4's lists: "
+          f"{len(hlog)} queries in {host_s:.3f} s of host CPU time, "
+          f"{len(hlog) / host_s:.2f} queries/s (host), routes {algos}; kernel "
+          f"launches {launches}, device memory allocated {mem_before} -> "
+          f"{mem_after} bytes; every answer equals the oracle and phase 4's")
+    out["s"]["13a"] = time.perf_counter() - t_part
+    print(f"phase 13a: {out['s']['13a']:.1f} s")
+    t_part = time.perf_counter()
+
+    # 13b: the quickstart's sets through every host algorithm
+    rng = np.random.default_rng(0)
+    universe = 1 << 26
+    common = rng.choice(universe, 500, replace=False).astype(np.uint32)
+    a = np.unique(np.concatenate(
+        [rng.choice(universe, 40000).astype(np.uint32), common]))
+    b = np.unique(np.concatenate(
+        [rng.choice(universe, 90000).astype(np.uint32), common]))
+    truth = np.intersect1d(a, b)
+    fam, perm = random_hash_family(m=2, w=256, seed=1), default_permutation(1)
+    ia, ib = (partition.preprocess_prefix(x, w=256, m=2, family=fam,
+                                          perm=perm) for x in (a, b))
+    f64 = random_hash_family(m=1, w=64, seed=2)
+    fa, fb = (partition.preprocess_fixed(x, w=64, family=f64) for x in (a, b))
+    runs = {
+        "rangroupscan/searchsorted": lambda: intersect.rangroupscan([ia, ib]),
+        "rangroupscan/allpairs": lambda: intersect.rangroupscan(
+            [ia, ib], recovery="allpairs"),
+        "rangroup": lambda: intersect.rangroup([ia, ib]),
+        "hashbin": lambda: intersect.hashbin(ia, ib),
+        "intgroup/searchsorted": lambda: intersect.intgroup(fa, fb),
+        "intgroup/inverted": lambda: intersect.intgroup(
+            fa, fb, recovery="inverted"),
+        **{f"baseline {name}": (lambda fn=fn: fn([a, b]))
+           for name, fn in baselines.BASELINES.items()},
+    }
+    host_ms = {}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        res, _ = run()
+        host_ms[name] = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(res, truth), f"13b: {name} disagrees")
+    c = compress.compress_lowbits(ib)
+    require(np.array_equal(np.concatenate(
+        [compress.decompress_group(c, z) for z in range(1 << ib.t)]),
+        ib.g_keys), "13b: the low-bits round trip failed")
+    for enc, dec in ((compress.gamma_encode, compress.gamma_decode),
+                     (compress.delta_encode, compress.delta_decode)):
+        require(np.array_equal(dec(*enc(truth)), truth),
+                f"13b: the {enc.__name__} round trip failed")
+    space = compress.space_report(ib)
+    out["13b"] = {"a": len(a), "b": len(b), "r": len(truth),
+                  "host_ms": host_ms, "space_bits_per_element": space}
+    print(f"phase 13b quickstart sets |A| {len(a)}, |B| {len(b)}, r "
+          f"{len(truth)}: {len(runs)} algorithms and baselines equal "
+          f"np.intersect1d, host ms "
+          f"{ {k: round(v, 1) for k, v in host_ms.items()} }; low-bits, "
+          f"gamma and delta round trips; space_report (bits/element) "
+          f"{ {k: round(v, 3) for k, v in space.items()} }")
+    out["s"]["13b"] = time.perf_counter() - t_part
+    print(f"phase 13b: {out['s']['13b']:.1f} s")
+    report["host_route"] = out
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2405,9 +2933,21 @@ def main(argv=None) -> int:
     # phase 11: z-sharded and 2-D execution, four shards on the card
     async_launches.update(run_sharded(torch, engine, results, log, planted,
                                       suggest, expr_log, report))
-    del engine, postings, results, suggest, expr_log
+    del suggest, expr_log
     torch.cuda.empty_cache()
     t_phase = phase_done("11 sharded and 2-D", t_phase)
+
+    # phase 12: observability and the load harness on phase 4's index
+    async_launches.update(run_observability(torch, engine, postings, report))
+    torch.cuda.empty_cache()
+    t_phase = phase_done("12 observability", t_phase)
+
+    # phase 13: the host route on phase 4's lists (launches nothing)
+    host_launches = run_host_route(torch, engine, postings, log, results,
+                                   report)
+    del engine, postings, results
+    torch.cuda.empty_cache()
+    t_phase = phase_done("13 host route", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -2459,7 +2999,8 @@ def main(argv=None) -> int:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=2) + "\n")
 
-    print(f"kernels by path: {json.dumps(paths)}")
+    print(f"kernels by path: {json.dumps(paths)}; 13a host query_batch: "
+          f"{json.dumps(host_launches)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -40,6 +40,14 @@ dispatched bucket, ``inflight_collects`` per one-shot teardown (equal
 after a drain), ``overlap_high_water`` (most buckets in flight at once),
 ``collect_us`` (blocking collect time) and ``dispatch_failures`` (buckets
 whose dispatch or collect raised).
+
+With an ``obs`` (:class:`repro_torch.obs.Obs`) a bucket also reports
+through it: the in-flight gauge and its high water, the dispatch-to-collect
+latency, batch-size and survivor histograms, the per-signature profile
+store, and, with its tracer on, a ``bucket`` span with ``dispatch``,
+``device`` and ``collect`` children.  ``device`` runs from the end of
+dispatch to the start of collect: host time while the card works, the same
+boundaries as the JAX package's span (no CUDA event is read for it).
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ from ..core.engine import (
     dispatch_mesh2d_batch, dispatch_sharded_batch, expr_total_width,
 )
 from ..device import Device
+from ..obs.profile import sig_label
 from .expr import subexpr_keys
 from .plan import QueryPlan, ShapeSig, plan_query
 
@@ -118,12 +127,17 @@ class InFlightBucket:
     in-flight ``weight`` from dispatch until the teardown, so least-loaded
     routing of the next dispatch sees it; the teardown releases it exactly
     once, flagged as a failure when the collect raised.
+
+    With ``obs`` the bucket enters the in-flight gauge at once and, with
+    the tracer on, opens its ``bucket`` span backdated to
+    ``dispatched_at`` with the ``dispatch`` child already closed.
     """
 
     def __init__(self, sig: ShapeSig, items: Sequence[Tuple[int, QueryPlan]],
                  pending: PendingBatch, dispatched_at: float,
                  capacity_model=None, topology=None,
-                 replica: Optional[int] = None, weight: float = 0.0):
+                 replica: Optional[int] = None, weight: float = 0.0,
+                 obs=None):
         self.sig = sig
         self.items = list(items)
         self.pending = pending
@@ -133,8 +147,21 @@ class InFlightBucket:
         self.topology = topology
         self.replica = replica
         self.weight = weight
+        self.obs = obs
+        self.span = None
         self._out: Optional[Dict[int, Tuple[np.ndarray, Dict]]] = None
         self._finished = False
+        if obs is not None:
+            obs.inflight.inc()
+            obs.inflight_high_water.set(obs.inflight.value)
+            if obs.tracer.enabled:
+                self.span = obs.tracer.start(
+                    "bucket", start_us=dispatched_at * 1e6,
+                    sig=sig_label(sig), batch=len(self.items),
+                    replica=replica)
+                obs.tracer.span_at(
+                    "dispatch", dispatched_at * 1e6,
+                    self.dispatch_end_at * 1e6, parent=self.span)
 
     def is_ready(self) -> bool:
         """Non-blocking peek: True when the first pass has finished."""
@@ -142,8 +169,9 @@ class InFlightBucket:
 
     def _finish(self, failed: bool = False) -> None:
         """One-shot teardown on the first collect completion or failure:
-        releases the balancer weight; ``failed`` also counts a
-        ``dispatch_failures``."""
+        releases the balancer weight and leaves the in-flight gauge;
+        ``failed`` also counts a ``dispatch_failures`` (in ``obs`` too) and
+        closes the bucket span with ``error=True``."""
         if self._finished:
             return
         self._finished = True
@@ -153,11 +181,20 @@ class InFlightBucket:
         EXEC_COUNTERS.bump_many({"inflight_collects": 1,
                                  "dispatch_failures": int(failed)})
         _inflight_exit()
+        if self.obs is not None:
+            self.obs.inflight.dec()
+            if failed:
+                self.obs.dispatch_failures.inc()
+                if self.span is not None:
+                    self.span.end(error=True)
 
     def collect(self) -> Dict[int, Tuple[np.ndarray, Dict]]:
         """Block for the bucket's results: {query_index: (values, stats)}.
         Stamps ``batch_us`` (and the ``replica`` of a placed bucket), adds
-        the blocking time to ``collect_us`` and feeds the capacity model."""
+        the blocking time to ``collect_us`` and feeds the capacity model.
+        With ``obs``: the latency, batch-size and survivor observations,
+        the profile sample, and the ``device`` and ``collect`` children
+        that close the bucket span."""
         if self._out is not None:
             return self._out
         c0 = time.perf_counter()
@@ -179,6 +216,20 @@ class InFlightBucket:
         if self.capacity_model is not None:
             self.capacity_model.observe_bucket(
                 self.sig, [stats for _, stats in out.values()])
+        if self.obs is not None:
+            self.obs.collect_latency.observe(us)
+            self.obs.batch_size.observe(len(self.items))
+            for _, stats in out.values():
+                if "r" in stats:
+                    self.obs.survivors.observe(stats["r"])
+            self.obs.profile.observe(self.sig, len(self.items), us)
+            if self.span is not None:
+                self.obs.tracer.span_at(
+                    "device", self.dispatch_end_at * 1e6, c0 * 1e6,
+                    parent=self.span)
+                self.obs.tracer.span_at(
+                    "collect", c0 * 1e6, c1 * 1e6, parent=self.span)
+                self.span.end()
         self._out = out
         return out
 
@@ -208,6 +259,7 @@ def dispatch_bucket(
     get_sharded_set: Optional[Callable[[object], object]] = None,
     topology=None,
     get_replica_set: Optional[Callable[[int, object], DeviceSet]] = None,
+    obs=None,
 ) -> InFlightBucket:
     """Enqueue ONE same-signature bucket without blocking; ``get_set``
     resolves a planned term to its DeviceSet.
@@ -226,7 +278,9 @@ def dispatch_bucket(
     Bumps ``inflight_dispatches``; the pipeline bumps its pass counters.
     A dispatch that raises bumps ``dispatch_failures``.  Dispatches must be
     serialized by the caller (the lazy mirror builders are not locked);
-    collects need no lock.  ``capacity_model`` is fed at collect."""
+    collects need no lock.  ``capacity_model`` is fed at collect; ``obs``
+    (a :class:`repro_torch.obs.Obs`, or None for ``EXEC_COUNTERS`` only)
+    gets the bucket's metrics and spans."""
     t0 = time.perf_counter()
     replica: Optional[int] = None
     weight = 0.0
@@ -323,12 +377,14 @@ def dispatch_bucket(
                                                 device=device)
     except BaseException:
         EXEC_COUNTERS.bump("dispatch_failures")
+        if obs is not None:
+            obs.dispatch_failures.inc()
         raise
     EXEC_COUNTERS.bump("inflight_dispatches")
     _inflight_enter()
     return InFlightBucket(sig, items, pending, t0,
                           capacity_model=capacity_model, topology=topology,
-                          replica=replica, weight=weight)
+                          replica=replica, weight=weight, obs=obs)
 
 
 def execute_bucket(
@@ -337,6 +393,7 @@ def execute_bucket(
     items: Sequence[Tuple[int, QueryPlan]],
     device: Device = "cuda",
     capacity_model=None,
+    obs=None,
     **layout,
 ) -> Dict[int, Tuple[np.ndarray, Dict]]:
     """Execute ONE same-signature bucket: {query_index: (values, stats)}.
@@ -345,7 +402,8 @@ def execute_bucket(
     ``shard_axis``, ``get_sharded_set``, ``topology`` and
     ``get_replica_set``."""
     return dispatch_bucket(get_set, sig, items, device=device,
-                           capacity_model=capacity_model, **layout).collect()
+                           capacity_model=capacity_model, obs=obs,
+                           **layout).collect()
 
 
 def execute_plan_buckets(
@@ -354,6 +412,7 @@ def execute_plan_buckets(
     device: Device = "cuda",
     capacity_model=None,
     max_inflight: int = 4,
+    obs=None,
     **layout,
 ) -> Dict[int, Tuple[np.ndarray, Dict]]:
     """Execute device plans bucket by bucket: {query_index: (values, stats)}.
@@ -361,14 +420,14 @@ def execute_plan_buckets(
     One pass per distinct signature (plus rare overflow re-runs), with up to
     ``max_inflight`` buckets dispatched ahead of their collection.  All
     results are collected before returning.  ``layout`` is passed to
-    :func:`dispatch_bucket` (mesh and topology routing).
+    :func:`dispatch_bucket` (mesh and topology routing), and so is ``obs``.
     """
     out: Dict[int, Tuple[np.ndarray, Dict]] = {}
     window: List[InFlightBucket] = []
     for sig, items in bucket_plans(indexed_plans).items():
         window.append(dispatch_bucket(get_set, sig, items, device=device,
                                       capacity_model=capacity_model,
-                                      **layout))
+                                      obs=obs, **layout))
         if len(window) >= max(1, max_inflight):
             out.update(window.pop(0).collect())
     for bucket in window:

@@ -149,6 +149,7 @@ def plan_query(
     mesh_shards: int = 1,
     mesh_replicas: int = 1,
     shard_min_g: int = SHARD_MIN_G,
+    device: bool = True,
 ) -> QueryPlan:
     """Plan one query against ``index`` (term -> set with .t/.gmax/.n).
 
@@ -165,7 +166,10 @@ def plan_query(
     1`` (the mesh's z-axis width and, on a 2-D topology, its replica
     rows), a query whose largest set has ``2^t_k >= shard_min_g`` group
     tuples and whose sets split over the shards is stamped with both and
-    runs on the mesh.
+    runs on the mesh.  With ``device=False`` (an engine without a device)
+    a conjunction the §3.4 policy does not send to HashBin plans
+    ``"host"`` (RanGroupScan on the host), and an expression plans
+    ``"host"`` with its canonical ``expr`` (evaluated on the host).
     """
     if isinstance(terms, str):
         terms = parse(terms)
@@ -174,7 +178,7 @@ def plan_query(
                           capacity_model=capacity_model,
                           mesh_shards=mesh_shards,
                           mesh_replicas=mesh_replicas,
-                          shard_min_g=shard_min_g)
+                          shard_min_g=shard_min_g, device=device)
     uniq = []
     seen = set()
     for term in terms:
@@ -190,6 +194,8 @@ def plan_query(
     ns = [index[t].n for t in uniq]
     if len(uniq) == 2 and max(ns) / max(1, min(ns)) > hashbin_ratio:
         return QueryPlan(terms=tuple(uniq), algorithm="hashbin")
+    if not device:
+        return QueryPlan(terms=tuple(uniq), algorithm="host")
     ts = tuple(index[t].t for t in uniq)
     gmaxes = tuple(gmax_tier(index[t].gmax) for t in uniq)
     # sets are t-ascending: the smallest splits iff every one does
@@ -207,7 +213,7 @@ def plan_query(
 
 def _plan_expr(index: Mapping, raw: Expr, hashbin_ratio: float,
                capacity_model, mesh_shards: int, mesh_replicas: int,
-               shard_min_g: int) -> QueryPlan:
+               shard_min_g: int, device: bool) -> QueryPlan:
     """Expression arm of :func:`plan_query`.  Canonicalization runs against
     the index (unknown terms become ∅ and propagate), so every leaf of a
     plan resolves.  The §3.4 HashBin policy never applies to an expression
@@ -225,8 +231,10 @@ def _plan_expr(index: Mapping, raw: Expr, hashbin_ratio: float,
                           capacity_model=capacity_model,
                           mesh_shards=mesh_shards,
                           mesh_replicas=mesh_replicas,
-                          shard_min_g=shard_min_g)
+                          shard_min_g=shard_min_g, device=device)
     leaves = leaf_terms(can)
+    if not device:
+        return QueryPlan(terms=leaves, algorithm="host", expr=can)
     ts = tuple(index[t].t for t in leaves)
     gmaxes = tuple(gmax_tier(index[t].gmax) for t in leaves)
     eshape = expr_shape(can)

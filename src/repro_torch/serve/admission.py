@@ -61,6 +61,12 @@ class Ticket:
     is written, so a thread that sees ``done`` (or returns from
     :meth:`wait`) sees the value.  It is single-shot: a second ``resolve``
     or ``resolve_error`` raises instead of clobbering a delivered result.
+
+    Tracing: the submitting engine may stamp ``span`` (the request's root
+    span), ``admission_span`` (its queue-wait child) and ``obs``.  The root
+    span closes in :meth:`_record_wait`, so exactly once per ticket on
+    every path (value, error, cache hit, host plan), whichever thread
+    resolves it.
     """
 
     submitted_at: float
@@ -68,6 +74,10 @@ class Ticket:
     wait_us: float = 0.0
     error: Optional[BaseException] = None
     resolved_at: Optional[float] = None
+    span: Any = dataclasses.field(default=None, repr=False, compare=False)
+    admission_span: Any = dataclasses.field(
+        default=None, repr=False, compare=False)
+    obs: Any = dataclasses.field(default=None, repr=False, compare=False)
     _value: Any = None
     _done: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False, compare=False)
@@ -95,7 +105,9 @@ class Ticket:
         ``queue_wait_us`` (integer microseconds) and ``deadline_violations``
         (a wait more than 0.5 us, the virtual clock's float epsilon, past
         this ticket's own budget; a ticket with no budget cannot violate),
-        in one ``bump_many``."""
+        in one ``bump_many``.  With ``obs`` stamped the wait also lands in
+        the ``queue_wait_us`` histogram, and the root ``span`` closes
+        here."""
         violated = (self.deadline_us > 0
                     and wait_us > self.deadline_us + 0.5)
         EXEC_COUNTERS.bump_many({
@@ -103,6 +115,13 @@ class Ticket:
             "queue_wait_us": int(wait_us),
             "deadline_violations": int(violated),
         })
+        if self.obs is not None:
+            self.obs.queue_wait.observe(wait_us)
+        if self.span is not None:
+            self.span.end(wait_us=round(wait_us, 1),
+                          deadline_violation=violated,
+                          error=(type(self.error).__name__
+                                 if self.error is not None else None))
 
     def _publish(self, wait_us: float) -> None:
         self.wait_us = wait_us
@@ -148,7 +167,8 @@ class AdmissionQueue:
 
     def submit(self, key: Hashable, item: Any,
                deadline_us: Optional[float] = None,
-               submitted_at: Optional[float] = None) -> Ticket:
+               submitted_at: Optional[float] = None,
+               span: Any = None, obs: Any = None) -> Ticket:
         """Queue ``item`` under ``key``; returns its unresolved Ticket.
 
         ``deadline_us`` overrides the queue's default budget.
@@ -156,6 +176,10 @@ class AdmissionQueue:
         open-loop load generator passes the *scheduled* arrival, so a submitter
         that ran late still charges its lateness to the wait and the
         budget.  Submission never flushes by itself.
+
+        ``span`` / ``obs`` are stamped on the ticket before any flush can
+        see it; an ``admission`` child of ``span`` opens here and the
+        flush that picks the bucket up ends it.
         """
         ticket = Ticket(
             submitted_at=(self.clock() if submitted_at is None
@@ -163,6 +187,11 @@ class AdmissionQueue:
             deadline_us=(self.deadline_us if deadline_us is None
                          else float(deadline_us)),
         )
+        if span is not None:
+            ticket.span = span
+            ticket.admission_span = span.child("admission")
+        if obs is not None:
+            ticket.obs = obs
         with self._lock:
             self._buckets.setdefault(key, []).append((ticket, item))
         return ticket

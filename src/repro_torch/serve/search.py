@@ -5,8 +5,10 @@ host-side numpy), mirrors every list to the device, and serves conjunctive
 AND-queries and boolean ∪/∩/∖ expressions: every request batch is
 **planned** (terms deduped, resolved, routed per the paper's §3.4 online
 policy — HashBin on the host when the size ratio is extreme, RanGroupScan
-on the device otherwise; an expression is canonicalized, and one that is
-not a bare conjunction runs the expression pass on the device),
+on the device otherwise, or on the host for an engine built with
+``use_device=False``; an expression is canonicalized, and one that is not
+a bare conjunction runs the expression pass on the device, or on the host
+without one),
 **bucketed** by static shape signature, **executed** one pass per bucket,
 and the results **scattered** back in request order.  Single-query
 ``query`` is a batch of one.  A query is a term list, an
@@ -53,7 +55,7 @@ from ..core.engine import (
     EXEC_COUNTERS, SHARD_MIN_G, BatchedEngine, gmax_tier, pow2_tiers,
 )
 from ..core.hashing import default_permutation, random_hash_family
-from ..core.intersect import hashbin
+from ..core.intersect import hashbin, rangroupscan
 from ..core.partition import preprocess_prefix
 from ..device import Device
 from ..exec.adaptive import AdaptiveDeadline, CapacityModel, adaptive_key
@@ -64,6 +66,7 @@ from ..exec.expr import (
     And, Diff, Expr, Or, Term, canonicalize, eval_host, expr_key,
 )
 from ..exec.plan import QueryPlan, ShapeSig, plan_query, plan_suggest
+from ..obs import get_obs, sig_label
 from .admission import AdmissionQueue, Ticket
 
 __all__ = ["AsyncSearchEngine", "QueryResult", "SearchEngine",
@@ -80,8 +83,9 @@ class QueryResult:
     ``algorithm`` names the executed path (``"rangroupscan/device"``,
     ``"rangroupscan/sharded"``, ``"rangroupscan/mesh2d"``, the same three
     for ``"expr/..."``, ``"expr/subcache"``, ``"expr/host"``,
-    ``"hashbin"``, ``"empty"``); device stats include ``r``,
-    ``tuples_survived``, ``capacity`` (``capacity_per_shard`` on a mesh),
+    ``"rangroupscan"`` (on the host), ``"hashbin"``, ``"empty"``); device
+    stats include ``r``, ``tuples_survived``, ``capacity``
+    (``capacity_per_shard`` on a mesh),
     ``batch_size`` (expression buckets add ``expr_width`` and
     ``subexprs``; balancer-placed buckets ``replica``); cache hits carry
     ``{"cached": True}``.  ``doc_ids`` may be shared with the result cache
@@ -119,7 +123,13 @@ class SearchEngine:
     """In-memory conjunctive search over an inverted index.
 
     ``device`` ("cuda" by default; "cpu" only when asked) holds the mirrors
-    of every posting list and runs the device path.  ``result_cache``
+    of every posting list and runs the device path.  ``use_device=False``
+    builds no device engine: every query runs on the host (RanGroupScan,
+    HashBin, host expression evaluation).  The port's default is
+    ``use_device=True``, where the JAX package's ``SearchEngine`` defaults
+    to the host: the port's entry points run on the card unless asked
+    otherwise.  A ``mesh`` or ``topology`` implies the device.
+    ``result_cache``
     (entries; 0 disables) adds the LRU result cache; it registers itself on
     the device engine's mutation hook, so :meth:`add_postings` can never
     serve stale cached results.  ``adaptive_capacity`` (True for the
@@ -135,20 +145,29 @@ class SearchEngine:
     exclusive with ``mesh``) runs them over its replica rows and spreads
     single-device buckets over the rows with its balancer.  ``device``
     holds the plain mirrors either way.
+
+    ``obs`` (a :class:`repro_torch.obs.Obs`; the process-global
+    :func:`~repro_torch.obs.get_obs` by default) receives every bucket's
+    metrics, profile samples and, with its tracer on, spans.
     """
 
     def __init__(self, postings: Dict[int, np.ndarray], w: int = 256,
                  m: int = 2, seed: int = 0, hashbin_ratio: float = 100.0,
                  result_cache: int = 0, adaptive_capacity=False,
                  device: Device = "cuda", mesh=None,
-                 shard_min_g: int = SHARD_MIN_G, topology=None):
+                 shard_min_g: int = SHARD_MIN_G, topology=None,
+                 use_device: bool = True, obs=None):
+        self.obs = obs if obs is not None else get_obs()
         self.family = random_hash_family(m, w, seed=seed)
         self.perm = default_permutation(seed)
         self.w, self.m = w, m
         self.hashbin_ratio = hashbin_ratio
-        self.device = BatchedEngine(device=device, mesh=mesh,
-                                    shard_min_g=shard_min_g,
-                                    topology=topology)
+        self.use_device = (use_device or mesh is not None
+                           or topology is not None)
+        self.device = (BatchedEngine(device=device, mesh=mesh,
+                                     shard_min_g=shard_min_g,
+                                     topology=topology)
+                       if self.use_device else None)
         t0 = time.perf_counter()
         self.index = {
             t: preprocess_prefix(p, w=w, m=m, family=self.family,
@@ -156,12 +175,13 @@ class SearchEngine:
             for t, p in postings.items() if len(p)
         }
         self.build_s = time.perf_counter() - t0
-        for t, idx in self.index.items():
-            self.device.add(t, idx)
         self.cache = ResultCache(result_cache)
-        # build-time adds are done; from here on every index mutation
-        # stales the result cache
-        self.device.on_mutate(self.cache.bump_generation)
+        if self.device is not None:
+            for t, idx in self.index.items():
+                self.device.add(t, idx)
+            # build-time adds are done; from here on every index mutation
+            # stales the result cache
+            self.device.on_mutate(self.cache.bump_generation)
         if isinstance(adaptive_capacity, CapacityModel):
             self.capacity_model: Optional[CapacityModel] = adaptive_capacity
         else:
@@ -178,11 +198,13 @@ class SearchEngine:
         mesh routing when a mesh or topology is attached, learned capacity
         tier when an adaptive model is attached).  ``terms`` is a term
         sequence, an ``exec.expr.Expr`` or a ``parse`` string."""
+        dev = self.device
         return plan_query(self.index, terms, hashbin_ratio=self.hashbin_ratio,
                           capacity_model=self.capacity_model,
-                          mesh_shards=self.device.n_shards,
-                          mesh_replicas=self.device.n_replicas,
-                          shard_min_g=self.device.shard_min_g)
+                          mesh_shards=dev.n_shards if dev else 1,
+                          mesh_replicas=dev.n_replicas if dev else 1,
+                          shard_min_g=dev.shard_min_g if dev else SHARD_MIN_G,
+                          device=dev is not None)
 
     def _on_tier_promotion(self, key, old_tier: int, new_tier: int) -> None:
         """Capacity-tier change hook (fired by the CapacityModel, for
@@ -193,7 +215,7 @@ class SearchEngine:
         seen here and not at the next live flush."""
         self.cache.invalidate()
         rep = self._warm_reps.get(key)
-        if rep is None:
+        if rep is None or self.device is None:
             return
         spec, b_tiers = rep
         plan = self.plan(spec)  # re-plans at the new tier
@@ -212,7 +234,9 @@ class SearchEngine:
         ``b`` covers live buckets of size in ``(b/2, b]``).  Live buckets on
         a warmed signature then count no ``batch_traces``.  Returns the
         warmed signatures, most frequent first, also kept on
-        ``warmed_sigs``."""
+        ``warmed_sigs``.  Raises without a device."""
+        if self.device is None:
+            raise ValueError("warming is a device-path concept")
         plans = [self.plan(q) for q in sample_queries]
         self.warmed_sigs = self.device.warm_plans(plans, top_k=top_k,
                                                   b_tiers=b_tiers)
@@ -230,12 +254,16 @@ class SearchEngine:
     def add_postings(self, term: int, postings: np.ndarray) -> None:
         """Add or replace one term's posting list after build: re-runs
         preprocessing, refreshes the device mirror and — via the engine's
-        mutation hook — stales every cached result."""
+        mutation hook, or directly without a device — stales every cached
+        result."""
         idx = preprocess_prefix(np.asarray(postings, dtype=np.uint32),
                                 w=self.w, m=self.m, family=self.family,
                                 perm=self.perm)
         self.index[term] = idx
-        self.device.add(term, idx)
+        if self.device is not None:
+            self.device.add(term, idx)  # fires the cache hook
+        else:
+            self.cache.bump_generation()
 
     def invalidate_cache(self) -> None:
         """Explicit result-cache invalidation."""
@@ -328,8 +356,11 @@ class SearchEngine:
         return merge(e)
 
     def _execute_host_plan(self, plan: QueryPlan) -> QueryResult:
-        """Run one non-device plan (``empty`` / ``hashbin`` / an expression
-        planned for the host, ``expr/host``)."""
+        """Run one non-device plan: ``empty``, ``hashbin``, or ``host`` (an
+        expression evaluated on the host, ``expr/host``, or a conjunction
+        through RanGroupScan, ``rangroupscan``).  ``latency_us`` is the
+        query's host wall time; no ``EXEC_COUNTERS`` move (they count
+        device work)."""
         if plan.algorithm == "empty":
             return QueryResult(np.empty(0, np.uint32), 0.0, "empty", {})
         if plan.expr is not None:
@@ -337,13 +368,16 @@ class SearchEngine:
             res = eval_host(plan.expr, lambda t: self.index[t].values)
             dt = (time.perf_counter() - t0) * 1e6
             return QueryResult(res, dt, "expr/host", {"r": len(res)})
-        if plan.algorithm != "hashbin":
-            raise ValueError(f"no host path for {plan.algorithm!r}")
-        a, b = (self.index[t] for t in plan.terms)
+        idxs = [self.index[t] for t in plan.terms]
         t0 = time.perf_counter()
-        res, stats = hashbin(a, b)
+        if plan.algorithm == "hashbin":
+            res, stats = hashbin(idxs[0], idxs[1])
+            name = "hashbin"
+        else:
+            res, stats = rangroupscan(idxs)
+            name = "rangroupscan"
         dt = (time.perf_counter() - t0) * 1e6
-        return QueryResult(res, dt, "hashbin", stats.__dict__)
+        return QueryResult(res, dt, name, stats.__dict__)
 
     def query(self, terms) -> QueryResult:
         """Serve one query (a term list, an ``Expr`` or a ``parse``
@@ -357,7 +391,8 @@ class SearchEngine:
         Device-routed plans are grouped by shape signature and each bucket
         runs as ONE pass (plus rare overflow re-runs), each bumping
         ``EXEC_COUNTERS["batch_calls"]`` (``"expr_calls"`` for expression
-        buckets).  HashBin plans run per query on the host.  Cache hits
+        buckets), reporting through ``obs``.  HashBin and host plans run
+        per query on the host.  Cache hits
         (and expressions merged from cached subexpressions) are answered in
         place; misses are inserted after execution.
         """
@@ -378,7 +413,8 @@ class SearchEngine:
             by_index = execute_plan_buckets(
                 self.device.sets.__getitem__, device_plans,
                 device=self.device.device,
-                capacity_model=self.capacity_model, **self.device.routing())
+                capacity_model=self.capacity_model, obs=self.obs,
+                **self.device.routing())
             for i, plan in device_plans:
                 res, stats = by_index[i]
                 results[i] = QueryResult(res, stats.get("batch_us", 0.0),
@@ -477,6 +513,13 @@ class AsyncSearchEngine(SearchEngine):
     signatures at construction, at ``warm_b_tiers`` (default every pow2
     tier up to ``flush_tier``, so no partial flush meets an unseen
     specialization).  The result cache defaults on (1024 entries).
+
+    Observability (``obs``, inherited): every ticket's wait lands in
+    ``queue_wait_us``; with the tracer on, each submit opens a ``request``
+    root span (a ``plan`` child, an ``admission`` child for queued
+    tickets, its ``route``) that closes exactly once at resolution.  The
+    flusher pushes one registry snapshot onto ``obs.ring`` every
+    ``snapshot_every_s`` (0 disables).
     """
 
     def __init__(self, postings: Dict[int, np.ndarray],
@@ -489,11 +532,14 @@ class AsyncSearchEngine(SearchEngine):
                  adaptive_deadline=False,
                  max_inflight: int = 8,
                  inline_tier_flush: bool = True,
+                 snapshot_every_s: float = 1.0,
                  **kw):
         super().__init__(postings, result_cache=result_cache, **kw)
         if max_inflight < 1:
             raise ValueError("max_inflight must be at least 1")
         self.clock = clock
+        self.snapshot_every_s = float(snapshot_every_s)
+        self._last_snapshot_at = 0.0
         self.inline_tier_flush = bool(inline_tier_flush)
         self.admission = AdmissionQueue(flush_tier=flush_tier,
                                         deadline_us=deadline_us, clock=clock)
@@ -579,10 +625,11 @@ class AsyncSearchEngine(SearchEngine):
         the flights already finished without blocking, then wait: on the
         oldest flight's collection while flights are out, else until the
         next admission deadline (or the idle re-check), cut short by a
-        submit's wake.  Runs under the engine's CUDA device: the current
-        device is per thread."""
-        dev = self.device.device
-        with (torch.cuda.device(dev) if dev.type == "cuda"
+        submit's wake.  Every ``snapshot_every_s`` a wake also pushes a
+        registry snapshot onto ``obs.ring``.  Runs under the engine's CUDA
+        device: the current device is per thread."""
+        dev = self.device.device if self.device is not None else None
+        with (torch.cuda.device(dev) if dev is not None and dev.type == "cuda"
               else contextlib.nullcontext()):
             while True:
                 next_us = self.admission.next_deadline_in_us()
@@ -599,6 +646,13 @@ class AsyncSearchEngine(SearchEngine):
                     return
                 self._wake.clear()
                 EXEC_COUNTERS.bump("flusher_wakeups")
+                if self.snapshot_every_s > 0:
+                    now_mono = time.monotonic()
+                    if (now_mono - self._last_snapshot_at
+                            >= self.snapshot_every_s):
+                        self._last_snapshot_at = now_mono
+                        self.obs.ring.push(now_mono,
+                                           self.obs.registry.snapshot())
                 try:
                     self._flush(self.admission.take_due())
                     while self._collect_one(ready_only=True):
@@ -625,16 +679,40 @@ class AsyncSearchEngine(SearchEngine):
         wakes it.  ``arrival_at`` (engine-clock seconds) back-stamps the
         query's scheduled arrival, so an open-loop generator's lateness counts
         in the wait and the budget, on every path.
+
+        With the tracer on, the submit opens a ``request`` root span with a
+        ``plan`` child and sets its ``route``: ``cache``, ``subcache``,
+        ``host`` (with ``algorithm``) or ``device`` (with the signature's
+        label); a raise before the ticket exists ends it with
+        ``error=True``.
         """
-        plan = self.plan(terms)
-        cached = self._cached_result(plan)
-        if cached is not None:
-            return self._resolved_now(cached, arrival_at)
-        if plan.algorithm != "device":
-            gen = self.cache.generation
-            result = self._execute_host_plan(plan)
-            self._store(plan, result, generation=gen)
-            return self._resolved_now(result, arrival_at)
+        span = (self.obs.tracer.start("request")
+                if self.obs.tracer.enabled else None)
+        try:
+            if span is not None:
+                with span.child("plan"):
+                    plan = self.plan(terms)
+            else:
+                plan = self.plan(terms)
+            cached = self._cached_result(plan)
+            if cached is not None:
+                if span is not None:
+                    span.set(route=("subcache" if cached.stats.get(
+                        "subexpr_merge") else "cache"))
+                return self._resolved_now(cached, arrival_at, span=span)
+            if plan.algorithm != "device":
+                if span is not None:
+                    span.set(route="host", algorithm=plan.algorithm)
+                gen = self.cache.generation
+                result = self._execute_host_plan(plan)
+                self._store(plan, result, generation=gen)
+                return self._resolved_now(result, arrival_at, span=span)
+        except BaseException:
+            if span is not None:
+                span.end(error=True)
+            raise
+        if span is not None:
+            span.set(route="device", sig=sig_label(plan.sig))
         if self.adaptive_deadline is not None:
             key = adaptive_key(plan.sig)
             self.adaptive_deadline.observe(key, self.clock())
@@ -642,7 +720,8 @@ class AsyncSearchEngine(SearchEngine):
                 deadline_us = self.adaptive_deadline.budget_for(
                     key, self.admission.deadline_us)
         ticket = self.admission.submit(plan.sig, plan, deadline_us,
-                                       submitted_at=arrival_at)
+                                       submitted_at=arrival_at,
+                                       span=span, obs=self.obs)
         if self.running:
             # the queue reports 0 for full tiers, so the wake covers both
             # the tier flush and a new earliest deadline
@@ -679,12 +758,17 @@ class AsyncSearchEngine(SearchEngine):
         return self.admission.pending()
 
     def _resolved_now(self, result: QueryResult,
-                      arrival_at: Optional[float] = None) -> Ticket:
+                      arrival_at: Optional[float] = None,
+                      span=None) -> Ticket:
         """A ticket resolved inside ``submit``; with ``arrival_at`` its wait
-        is the submitter's lateness (scheduled arrival to now)."""
+        is the submitter's lateness (scheduled arrival to now).  The root
+        ``span`` closes through the ticket's resolution, as on the queued
+        path."""
         now = self.clock()
         arrival = now if arrival_at is None else min(float(arrival_at), now)
         ticket = Ticket(submitted_at=arrival, deadline_us=0.0)
+        ticket.span = span
+        ticket.obs = self.obs
         ticket.resolve(result, wait_us=(now - arrival) * 1e6)
         return ticket
 
@@ -719,9 +803,15 @@ class AsyncSearchEngine(SearchEngine):
         An index mutation between submit and flush can re-tier a queued
         term, so each plan is re-planned from its query; entries whose
         signature changed run through the synchronous path and resolve at
-        once.  ``wait_us`` runs from submit to this dispatch.
+        once.  ``wait_us`` runs from submit to this dispatch.  The pickup
+        ends each ticket's ``admission`` span; a traced bucket's span lists
+        its member traces and each member's root names the bucket span and
+        its replica.
         """
         flush_at = self.clock()
+        for ticket, _ in entries:
+            if ticket.admission_span is not None:
+                ticket.admission_span.end()
         live = []
         for ticket, plan in entries:
             if self.plan(plan.query_spec()).sig == sig:
@@ -742,12 +832,20 @@ class AsyncSearchEngine(SearchEngine):
             bucket = dispatch_bucket(
                 self.device.sets.__getitem__, sig, items,
                 device=self.device.device,
-                capacity_model=self.capacity_model, **self.device.routing())
+                capacity_model=self.capacity_model, obs=self.obs,
+                **self.device.routing())
         except Exception as exc:
             for ticket, _ in live:
                 ticket.resolve_error(
                     exc, wait_us=(flush_at - ticket.submitted_at) * 1e6)
             return
+        if bucket.span is not None:
+            bucket.span.set(traces=[t.span.trace_id for t, _ in live
+                                    if t.span is not None])
+            for ticket, _ in live:
+                if ticket.span is not None:
+                    ticket.span.set(bucket_span=bucket.span.span_id,
+                                    replica=bucket.replica)
         with self._flight_cv:
             self._flights.append(_Flight(bucket, live, flush_at, gen))
             self._flight_cv.notify_all()
@@ -876,13 +974,18 @@ class SuggestEngine:
     :class:`SearchEngine` (``"suggest/sharded"``, ``"suggest/mesh2d"``).
     The result cache stores merged answers per ``(set_id, k)`` and is
     stamped with the index generation, so :meth:`add_set` never lets a
-    stale answer out.
+    stale answer out.  ``obs`` (the global :func:`~repro_torch.obs.get_obs`
+    by default) receives the count buckets' metrics and, with its tracer
+    on, one ``request`` span per request (``kind="suggest"``, a ``plan``
+    child, ``route`` ``cache`` / ``device`` / ``host``).
     """
 
     def __init__(self, corpus: Dict[int, np.ndarray], w: int = 256,
                  m: int = 2, seed: int = 0, use_device: bool = True,
                  result_cache: int = 1024, device: Device = "cuda",
-                 mesh=None, shard_min_g: int = SHARD_MIN_G, topology=None):
+                 mesh=None, shard_min_g: int = SHARD_MIN_G, topology=None,
+                 obs=None):
+        self.obs = obs if obs is not None else get_obs()
         self.family = random_hash_family(m, w, seed=seed)
         self.perm = default_permutation(seed)
         self.w, self.m = w, m
@@ -971,12 +1074,18 @@ class SuggestEngine:
 
         The class plans of all requests bucket together, so the device
         passes (``count_calls``) number the distinct signatures, not the
-        requests.  An unknown ``set_id`` raises KeyError.
+        requests.  An unknown ``set_id`` raises KeyError.  A raise in the
+        device passes ends every open request span with ``error=True``.
         """
         for set_id, _ in requests:
             if set_id not in self.corpus:
                 raise KeyError(set_id)
         gen = self.cache.generation  # results compute against THIS index
+        tracing = self.obs.tracer.enabled
+        spans = [self.obs.tracer.start("request", kind="suggest",
+                                       set_id=set_id, k=int(k))
+                 if tracing else None
+                 for set_id, k in requests]
         results: List[Optional[SuggestResult]] = [None] * len(requests)
         req_plans: Dict[int, List[Tuple[int, QueryPlan]]] = {}
         flat: List[Tuple[int, QueryPlan]] = []
@@ -986,19 +1095,33 @@ class SuggestEngine:
                 suggestions, algorithm = hit
                 results[ri] = SuggestResult(suggestions, 0.0, algorithm,
                                             {"cached": True, "k": int(k)})
+                if spans[ri] is not None:
+                    spans[ri].end(route="cache")
                 continue
             plans = []
-            for plan in self._plans_for(set_id, int(k)):
+            if spans[ri] is not None:
+                with spans[ri].child("plan"):
+                    class_plans = self._plans_for(set_id, int(k))
+            else:
+                class_plans = self._plans_for(set_id, int(k))
+            for plan in class_plans:
                 if plan.algorithm == "device":
                     plans.append((len(flat), plan))
                     flat.append((len(flat), plan))
                 else:
                     plans.append((-1, plan))
             req_plans[ri] = plans
-        by_index = (execute_plan_buckets(self.device.sets.__getitem__, flat,
-                                         device=self.device.device,
-                                         **self.device.routing())
-                    if flat else {})
+        try:
+            by_index = (execute_plan_buckets(self.device.sets.__getitem__,
+                                             flat, device=self.device.device,
+                                             obs=self.obs,
+                                             **self.device.routing())
+                        if flat else {})
+        except BaseException:
+            for span in spans:  # Span.end is idempotent: cache hits stay
+                if span is not None:
+                    span.end(error=True)
+            raise
         for ri, (set_id, k) in enumerate(requests):
             if results[ri] is not None:
                 continue
@@ -1023,6 +1146,10 @@ class SuggestEngine:
             suggestions = self._merge(per_class, int(k))
             stats["r"] = len(suggestions)
             results[ri] = SuggestResult(suggestions, batch_us, algorithm, stats)
+            if spans[ri] is not None:
+                spans[ri].end(route="device" if any(
+                    fi >= 0 for fi, _ in req_plans[ri]) else "host",
+                    algorithm=algorithm, r=len(suggestions))
             self.cache.put(_SuggestCacheKey(set_id, int(k)),
                            (suggestions, algorithm), generation=gen)
         return results  # type: ignore[return-value]

@@ -4,10 +4,11 @@ Each ``case_*`` function drives one scenario through an :class:`Api` (the
 JAX package's or the port's entry points) and returns plain data: sorted
 values as lists of ints, the stats the two packages share, counter deltas
 and whatever else the scenario reads.  ``tests/test_torch_sharded.py`` and
-``tests/test_torch_mesh2d.py`` run every case of theirs once in a JAX
-subprocess with eight forced host devices (:func:`main`) and once on the
-port in-process, over logical CPU devices (a mesh listing ``"cpu"``
-several times), and require the two results to be equal.
+``tests/test_torch_mesh2d.py`` (and ``tests/test_torch_obs.py``, for the
+``obs_*`` cases) run every case of theirs once in a JAX subprocess with
+eight forced host devices (:func:`main`) and once on the port in-process,
+over logical CPU devices (a mesh listing ``"cpu"`` several times), and
+require the two results to be equal.
 
 The inputs are seeded numpy data, preprocessed by each package's own
 ``preprocess_prefix``.  Every case clears the package's specialization
@@ -47,17 +48,20 @@ class Api:
     def __init__(self, package: str):
         self.package = package
         if package == "jax":
+            from repro import obs
             from repro.core import engine
             from repro.core import hashing, partition
             from repro.exec import batch, expr, plan, topology
             from repro.serve import search
         else:
+            from repro_torch import obs
             from repro_torch.core import engine
             from repro_torch.core import hashing, partition
             from repro_torch.exec import batch, expr, plan, topology
             from repro_torch.serve import search
         self.E, self.B, self.X, self.P, self.T, self.S = (
             engine, batch, expr, plan, topology, search)
+        self.O = obs
         self.hashing, self.partition = hashing, partition
 
     # -- layout ---------------------------------------------------------------
@@ -149,6 +153,33 @@ def served(results) -> list:
     return [(vals(r.doc_ids), r.algorithm, stats_of(r.stats),
              [(repr(k), vals(v)) for k, v in r.stats.get("subexprs", ())])
             for r in results]
+
+
+def span_forest(tracer) -> list:
+    """A tracer's spans in creation order as comparable data: (name, parent
+    name, attributes without ``wait_us``, open), with ``bucket_span`` as the
+    bucket's rank among bucket spans and ``traces`` as the ranks of their
+    ``request`` roots, so the forest is free of ids and times."""
+    spans = sorted(tracer.finished() + tracer.open_spans(),
+                   key=lambda s: s.span_id)
+    by_id = {s.span_id: s for s in spans}
+    buckets = [s.span_id for s in spans if s.name == "bucket"]
+    roots = {s.trace_id: i for i, s in enumerate(
+        s for s in spans if s.name == "request")}
+    out = []
+    for s in spans:
+        attrs = {}
+        for key, value in s.attrs.items():
+            if key == "wait_us":
+                continue
+            if key == "bucket_span":
+                value = buckets.index(value)
+            elif key == "traces":
+                value = [roots.get(t) for t in value]
+            attrs[key] = value
+        parent = by_id[s.parent_id].name if s.parent_id in by_id else None
+        out.append((s.name, parent, sorted(attrs.items()), s.end_us is None))
+    return out
 
 
 def sig_of(sig) -> tuple:
@@ -721,6 +752,42 @@ def case_mesh2d_expr_engine(api: Api, layout):
 
 # -- running ----------------------------------------------------------------------
 
+# -- observability -----------------------------------------------------------------
+
+def case_obs_mesh2d_traced(api: Api):
+    """A traced ``AsyncSearchEngine`` on a 2x2 topology, ``shard_min_g`` at
+    the log's median group count, so 2-D passes and balancer-placed
+    buckets both run: the span forest (with each bucket's ``replica``)
+    and the obs histograms' counts."""
+    post = postings(api)
+    topo = api.topology(2, 2)
+    obs = api.O.Obs(trace=True)
+    probe = api.S.SearchEngine(post, seed=3, **api.kw())
+    log = query_log(api, probe.index, 24, seed=5)
+    sizes = sorted({1 << p.sig.ts[-1] for p in map(probe.plan, log)
+                    if p.sig is not None})
+    # a stopped clock: every wait is 0, so the spans' deadline flags and
+    # the wait histogram do not depend on the host's speed
+    eng = api.S.AsyncSearchEngine(post, seed=3, flush_tier=4, result_cache=0,
+                                  shard_min_g=sizes[len(sizes) // 2],
+                                  clock=lambda: 0.0, obs=obs,
+                                  **api.kw(topology=topo))
+    api.fresh()
+    tickets = [eng.submit(q) for q in log]
+    eng.drain()
+    snap = obs.registry.snapshot()
+    return {"done": all(t.done and t.error is None for t in tickets),
+            "served": served([t.value for t in tickets]),
+            "forest": span_forest(obs.tracer),
+            "open": obs.tracer.open_count(),
+            # collect latencies are wall times: their count only
+            "hist": {name: (h["count"], None if name == "collect_latency_us"
+                            else h["counts"])
+                     for name, h in snap["histograms"].items()},
+            "counters": api.delta(),
+            "loads": [d["dispatched"] for d in topo.load_snapshot()]}
+
+
 CASES = {
     "sharded_oracle": ("ab", "bc", "ac", "abc"),
     "sharded_forced_overflow": (1, 2, 7),
@@ -749,6 +816,7 @@ CASES = {
     "mesh2d_count_balancer": (None,),
     "mesh2d_expr_overflow": LAYOUTS,
     "mesh2d_expr_engine": LAYOUTS,
+    "obs_mesh2d_traced": (None,),
 }
 
 
