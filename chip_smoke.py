@@ -179,6 +179,32 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                (both recoveries) and the seven baselines, all equal to
                ``np.intersect1d``, the low-bits, gamma and delta round
                trips, and ``space_report``.
+ 14. constrained LM decoding — ``get_config("qwen3-1.7b")`` unreduced (28
+               layers, d 2048, V 151,936; fp32 weights from a seeded
+               generator on the card, bf16 activations) through
+               ``build_model``, ``ConstraintSet`` and ``DecodeServer``:
+               14a 4 seeded prompts of 256 tokens: ``prefill``'s
+                   last-position logits and ``decode``'s at every position
+                   against a float32 reference (same weights, TF32 off,
+                   logits in blocks of one prompt), and decode against
+                   prefill, each within ``LM_TOL`` (largest row relative L2
+                   error); the same comparison with the weights rounded to
+                   e4m3 must fail it;
+               14b ``DecodeServer(batch_slots=4, max_seq=512)`` on 16
+                   seeded requests (prompts log-uniform in 8-128,
+                   ``max_new`` 16-64), half constrained by three masks (an
+                   allowed set, a whitelist, a banned stop-list): every
+                   constrained token in numpy's intersection, every ticket
+                   resolving to its request's tokens, the mask ops
+                   bit-identical to the CPU's, an all-banned row giving
+                   token 0, a one-slot server equal to a greedy loop over
+                   ``model.decode``, and the ticker (4 requests from 2
+                   threads, ``stop()``);
+               14c a decode step (B 4, cache depth 512) beside its bound
+                   (the weights read once), prefill tokens/s at B 4 x S
+                   512, the server's tokens/s and ms a tick, the mask ops'
+                   us at V 151,936 and k 3; the three kernels' launches
+                   over the phase, 0, print apart.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -194,7 +220,8 @@ expressions`` and ``async 10b expressions``, ``11a sharded query_batch``,
 suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
 baselines excluded), ``async 12b virtual 0.5x`` / ``1.5x``, ``async 12c
 metrics`` / ``traced`` (the first run of each), ``async 12c traced low``
-and ``12e traced suggest_batch``; 13a's count, 0 for every kernel, prints apart.  The
+and ``12e traced suggest_batch``; 13a's and 14's counts, 0 for every
+kernel, print apart.  The
 last lines are the kernel table as JSON (each kernel's ``launches`` on
 its main path, phase 4 or 7, and ``launches_by_path``) and ``{"ok": true,
 "device": {...}}``.  ``--report``
@@ -290,10 +317,33 @@ OBS_SNAPSHOT_S = 0.25
 # -- the host route on phase 4's lists (phase 13) -------------------------------
 HOST_QUERIES = 64            # 13a: phase 4's first 64 + planted + HashBin pair
 
+# -- constrained LM decoding at qwen3-1.7b's full width (phase 14) -----------
+LM_ARCH = "qwen3-1.7b"       # 28 layers, d 2048, 16/8 heads of 128, V 151,936
+LM_PROMPTS, LM_PROMPT_LEN = 4, 256   # 14a: seeded prompts, every position
+# 14a tolerance: the largest, over positions, of a logit row's relative L2
+# error.  bf16 rounds at 2^-9, and each of 28 layers adds a few such
+# roundings of unit-scale activations to the residual: CPU runs of the same
+# function cut to 2 and 8 layers gave 1.1% and 1.8% against float32, and
+# the same weights rounded to e4m3 (3 mantissa bits, per-tensor scale)
+# 9.3% and 15%.  8% leaves bf16 about twice its projected 28-layer error
+# and sits below the e4m3 control.  Decode and prefill are two bf16
+# evaluations of one function, so they are held to the same bound.
+LM_TOL = 0.08
+LM_SLOTS, LM_MAX_SEQ = 4, 512        # 14b: DecodeServer
+LM_REQUESTS = 16                     # half of them constrained
+LM_PROMPT_RANGE = (8, 128)           # log-uniform prompt lengths
+LM_MAX_NEW_RANGE = (16, 64)          # uniform max_new
+LM_ALLOWED, LM_WHITELIST, LM_STOP = 60000, 90000, 1000   # the three masks
+LM_TICKER_REQUESTS, LM_TICKER_THREADS = 4, 2
+LM_PREFILL_LEN = 512                 # 14c: prefill timed at B 4, S 512
+LM_PREFILL_ITERS = 5
+LM_PROFILED_STEPS = 1                # 14c: decode steps under the profiler
+
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
 # int32 compares: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BF16_OPS_PER_S = 989e12      # dense bf16 tensor-core rate
 TIME_ITERS = 20
 # the earlier design's times at the same shapes (it scanned every -1 slot;
 # NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
@@ -852,6 +902,7 @@ def profile_breakdown(torch, run,
         "device_busy_ms": busy_ms if rows else None,
         "device_busy_share": busy_ms / (wall * 1e3) if rows else None,
         "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:12]],
+        "device_calls": sum(c for _, _, c in rows),
         # each kernel's device ms over all its rows (one per template width)
         "kernel_ms": kernel_ms,
     }
@@ -2775,6 +2826,407 @@ def run_host_route(torch, engine, postings, log, results, report,
     return launches
 
 
+# -- phase 14: constrained LM decoding at full width ---------------------------
+
+def lm_row_err(got, want) -> float:
+    """The largest relative L2 error of a logit row (the last axis)."""
+    got = got.float()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+def round_e4m3(torch, params):
+    """A copy of ``params`` with every tensor rounded through
+    ``torch.float8_e4m3fn`` at a per-tensor scale (its largest magnitude
+    at e4m3's largest value, 448): 3 mantissa bits where bf16 keeps 8."""
+    import copy
+
+    out = copy.deepcopy(params)
+    with torch.no_grad():
+        for p in out.parameters():
+            s = float(p.abs().amax()) / 448.0 or 1.0
+            p.copy_((p / s).to(torch.float8_e4m3fn).to(p.dtype) * s)
+    return out
+
+
+def greedy_tokens(torch, model, params, prompt, max_new: int, max_seq: int,
+                  mask=None) -> list:
+    """The tokens a one-slot ``DecodeServer`` gives ``prompt``, by a plain
+    loop over ``model.decode`` on the server's schedule: the prompt at
+    positions 0..P-1, its last token again at P, then each new token at the
+    next position, until ``max_new`` tokens or position ``max_seq - 1``."""
+    from repro_torch.serve.constrain import apply_mask_to_logits
+
+    cache = model.init_cache(1, max_seq)
+    pos = 0
+
+    def step(tok: int) -> int:
+        nonlocal cache, pos
+        logits, cache = model.decode(
+            params, cache, torch.tensor([[tok]], device=model.device), pos)
+        pos += 1
+        if mask is not None:
+            logits = apply_mask_to_logits(logits, mask, model.cfg.vocab)
+        return int(torch.argmax(logits, dim=-1)[0])
+
+    for tok in prompt.tolist():
+        step(tok)
+    out, last = [], int(prompt[-1])
+    while True:
+        last = step(last)
+        out.append(last)
+        if len(out) >= max_new or pos >= max_seq - 1:
+            return out
+
+
+def lm_requests(rng, vocab: int, n: int, packed):
+    """``n`` seeded requests: prompt lengths log-uniform in
+    ``LM_PROMPT_RANGE``, ``max_new`` uniform in ``LM_MAX_NEW_RANGE``, every
+    even-numbered one constrained by ``packed``."""
+    from repro_torch.serve.engine import Request
+
+    lo, hi = np.log(LM_PROMPT_RANGE[0]), np.log(LM_PROMPT_RANGE[1])
+    out = []
+    for i in range(n):
+        p = int(round(float(np.exp(rng.uniform(lo, hi)))))
+        out.append(Request(
+            prompt=rng.integers(0, vocab, p),
+            max_new=int(rng.integers(LM_MAX_NEW_RANGE[0],
+                                     LM_MAX_NEW_RANGE[1] + 1)),
+            constraint=packed if i % 2 == 0 else None))
+    return out
+
+
+def time_lm(torch, model, params, cs, rng) -> dict:
+    """14c: one decode step at B ``LM_SLOTS`` and cache depth ``LM_MAX_SEQ``
+    beside its bound (the weights read once, the cache read, the logits
+    written), prefill at B ``LM_SLOTS`` x S ``LM_PREFILL_LEN``, and the
+    mask ops on ``cs``'s three masks, all with CUDA events."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.constrain import apply_mask_to_logits
+
+    cfg, v = model.cfg, model.cfg.vocab
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    cache = model.init_cache(LM_SLOTS, LM_MAX_SEQ)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=model.device)
+    step_ms = cuda_ms(torch, lambda: model.decode(params, cache, tok,
+                                                  LM_MAX_SEQ - 1))
+    prof = profile_breakdown(torch, lambda: [
+        model.decode(params, cache, tok, LM_MAX_SEQ - 1)
+        for _ in range(LM_PROFILED_STEPS)],
+        groups=("nvjet", "bfloat16_copy"))   # cuBLAS products, weight casts
+    busy_ms = (prof["device_busy_ms"] or 0.0) / LM_PROFILED_STEPS
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    del cache
+    step_bytes = param_bytes + cache_bytes + LM_SLOTS * v * 2
+    step_ops = 2 * n_params * LM_SLOTS
+    bound_ms = max(step_bytes / HBM_BYTES_PER_S,
+                   step_ops / BF16_OPS_PER_S) * 1e3
+    long = torch.from_numpy(rng.integers(
+        0, v, (LM_SLOTS, LM_PREFILL_LEN))).to(model.device)
+    prefill_ms = cuda_ms(torch, lambda: model.prefill(params, {"tokens": long}),
+                         iters=LM_PREFILL_ITERS)
+    stack = torch.stack(list(cs.masks.values()))
+    packed = ops.vocab_mask_and(stack)
+    bools = ops.unpack_vocab_mask(packed, v)
+    logits = torch.zeros((LM_SLOTS, v), dtype=cfg.activation_dtype,
+                         device=model.device)
+    mask_ms = {
+        "vocab_mask_and": cuda_ms(torch, lambda: ops.vocab_mask_and(stack)),
+        "pack_vocab_mask": cuda_ms(torch, lambda: ops.pack_vocab_mask(bools)),
+        "unpack_vocab_mask": cuda_ms(
+            torch, lambda: ops.unpack_vocab_mask(packed, v)),
+        "apply_mask_to_logits": cuda_ms(
+            torch, lambda: apply_mask_to_logits(logits, packed, v))}
+    return {"card": nvidia_smi(), "decode_step_ms": step_ms,
+            "profile": prof,
+            "device_calls_per_step": prof["device_calls"] / LM_PROFILED_STEPS,
+            "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_ms / step_ms,
+            "decode_step_bound_ms": bound_ms, "decode_step_bytes": step_bytes,
+            "decode_step_ops": step_ops, "bound_share": bound_ms / step_ms,
+            "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": LM_SLOTS * LM_PREFILL_LEN / prefill_ms * 1e3,
+            "mask_us": {k: ms * 1e3 for k, ms in mask_ms.items()}}
+
+
+def run_lm_serving(torch, report) -> dict:
+    """Phase 14: ``get_config(LM_ARCH)`` unreduced (fp32 weights drawn from
+    a seeded generator on the card, bf16 activations) through the port's
+    ``build_model``, ``ConstraintSet`` and ``DecodeServer``:
+    14a prefill's last-position logits and decode's logits at every
+    position against a float32 reference (TF32 off) on the same weights,
+    decode against prefill, and the same comparison failing with the
+    weights rounded to e4m3; 14b the server on ``LM_REQUESTS`` seeded
+    requests, half constrained by three masks, the masks bit-identical to
+    the CPU's, a one-slot server equal to a greedy loop, and the ticker;
+    14c times beside the decode step's bound.  Returns the three kernels'
+    launches over the phase (none is on this path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.constrain import (
+        ConstraintSet, constrained_greedy_token,
+    )
+    from repro_torch.serve.engine import DecodeServer, Request
+
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda, "pair_count": count_block_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    cfg = get_config(LM_ARCH)
+    out = {"arch": cfg.name, "s": {}}
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 14a: agreement with a float32 reference
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(SEED + 14)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN))).to(model.device)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            hidden = transformer.forward(params, cfg32, tokens)
+            ref = torch.stack([transformer.logits_fn(params, cfg32, h)
+                               for h in hidden])   # (B, S, V), one row a block
+        del hidden
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    prefill = model.prefill(params, {"tokens": tokens})
+    prefill_err = lm_row_err(prefill, ref[:, -1])
+    cache = model.init_cache(LM_PROMPTS, LM_PROMPT_LEN)
+    decode_err = 0.0
+    for pos in range(LM_PROMPT_LEN):
+        logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1], pos)
+        decode_err = max(decode_err, lm_row_err(logits, ref[:, pos]))
+    decode_vs_prefill = lm_row_err(logits, prefill.float())
+    del cache
+    require(torch.isfinite(prefill).all() and prefill.shape == (
+        LM_PROMPTS, cfg.vocab), "14a: prefill logits not finite or misshapen")
+    require(prefill_err <= LM_TOL,
+            f"14a: prefill vs float32 reference {prefill_err} > {LM_TOL}")
+    require(decode_err <= LM_TOL,
+            f"14a: decode vs float32 reference {decode_err} > {LM_TOL}")
+    require(decode_vs_prefill <= LM_TOL,
+            f"14a: decode vs prefill {decode_vs_prefill} > {LM_TOL}")
+    rounded = round_e4m3(torch, params)
+    e4m3_err = lm_row_err(model.prefill(rounded, {"tokens": tokens}),
+                          ref[:, -1])
+    del rounded, ref
+    require(e4m3_err > LM_TOL,
+            f"14a: e4m3-rounded weights pass the tolerance ({e4m3_err} <= "
+            f"{LM_TOL}); it does not separate bf16 from them")
+    peak_14a = torch.cuda.max_memory_allocated()
+    out["14a"] = {"layers": cfg.n_layers, "params": n_params,
+                  "param_bytes": param_bytes, "init_s": init_s,
+                  "prompts": LM_PROMPTS, "prompt_len": LM_PROMPT_LEN,
+                  "tol": LM_TOL, "prefill_err": prefill_err,
+                  "decode_err": decode_err,
+                  "decode_vs_prefill": decode_vs_prefill,
+                  "e4m3_prefill_err": e4m3_err, "peak_bytes": peak_14a}
+    print(f"phase 14a {cfg.name}: {cfg.n_layers} layers, {n_params} "
+          f"parameters ({param_bytes} bytes, {cfg.param_dtype}), activations "
+          f"{cfg.dtype}; build and init {init_s:.2f} s; {LM_PROMPTS} prompts "
+          f"x {LM_PROMPT_LEN}: largest row relative L2 error of the logits "
+          f"against float32 (TF32 off): prefill {prefill_err:.5f}, decode "
+          f"(every position) {decode_err:.5f}; decode vs prefill "
+          f"{decode_vs_prefill:.5f}; tolerance {LM_TOL}; weights rounded to "
+          f"e4m3: {e4m3_err:.5f} (must fail)")
+    out["s"]["14a"] = time.perf_counter() - t_part
+    print(f"phase 14a: {out['s']['14a']:.1f} s")
+    t_part = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 14b: the server
+    v = cfg.vocab
+    masks = {"grammar": rng.choice(v, min(LM_ALLOWED, v), replace=False),
+             "retrieval": rng.choice(v, min(LM_WHITELIST, v), replace=False),
+             "stoplist": np.arange(min(LM_STOP, v))}
+    allowed = set(np.setdiff1d(np.intersect1d(masks["grammar"],
+                                              masks["retrieval"]),
+                               masks["stoplist"]).tolist())
+    sets = {}
+    for dev in ("cuda", "cpu"):
+        cs = ConstraintSet(v, device=dev)
+        cs.add_allowed("grammar", masks["grammar"])
+        cs.add_allowed("retrieval", masks["retrieval"])
+        cs.add_banned("stoplist", masks["stoplist"])
+        sets[dev] = cs
+    cs, cs_cpu = sets["cuda"], sets["cpu"]
+    packed = cs.combined()
+    for name in masks:
+        require(torch.equal(cs.masks[name].cpu(), cs_cpu.masks[name]),
+                f"14b: pack_vocab_mask of {name} differs from the CPU's")
+    require(torch.equal(packed.cpu(), cs_cpu.combined()),
+            "14b: vocab_mask_and differs from the CPU's")
+    unpacked = ops.unpack_vocab_mask(packed, v)
+    require(torch.equal(unpacked.cpu(),
+                        ops.unpack_vocab_mask(cs_cpu.combined(), v)),
+            "14b: unpack_vocab_mask differs from the CPU's")
+    require(set(torch.nonzero(unpacked).flatten().tolist()) == allowed,
+            "14b: the packed intersection is not numpy's")
+    none = ConstraintSet(v)
+    none.add_banned("all", np.arange(v))
+    require(constrained_greedy_token(torch.zeros(2, v, device=model.device),
+                                     none.combined(), v).tolist() == [0, 0],
+            "14b: an all-banned row does not give token 0")
+
+    reqs = lm_requests(rng, v, LM_REQUESTS, packed)
+    srv = DecodeServer(model, params, batch_slots=LM_SLOTS,
+                       max_seq=LM_MAX_SEQ)
+    decode = srv._decode
+    calls = [0]
+
+    def counting(*args):
+        calls[0] += 1
+        return decode(*args)
+    srv._decode = counting
+    t0 = time.perf_counter()
+    tickets = [srv.submit(r) for r in reqs]
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    generated = sum(len(r.out) for r in reqs)
+    for r, t in zip(reqs, tickets):
+        require(r.done and t.done and t.value == r.out,
+                "14b: a ticket did not resolve to its request's tokens")
+        require(len(r.out) == r.max_new, "14b: a request stopped early")
+        if r.constraint is not None:
+            require(set(r.out) <= allowed,
+                    "14b: a constrained token lies outside the intersection")
+    constrained = [t for r in reqs if r.constraint is not None for t in r.out]
+
+    # the shortest requests (prompt plus max_new), to keep the phase short:
+    # the shortest constrained and free ones against the greedy loop, the
+    # LM_TICKER_REQUESTS shortest through the ticker
+    by_len = sorted(reqs, key=lambda r: len(r.prompt) + r.max_new)
+    one = DecodeServer(model, params, batch_slots=1, max_seq=LM_MAX_SEQ)
+    firsts = [Request(prompt=r.prompt, max_new=r.max_new,
+                      constraint=r.constraint)
+              for r in ([r for r in by_len if r.constraint is not None][:1]
+                        + [r for r in by_len if r.constraint is None][:1])]
+    for r in firsts:
+        one.submit(r)
+    one.run_until_drained()
+    for r in firsts:
+        require(r.out == greedy_tokens(torch, model, params, r.prompt,
+                                       r.max_new, LM_MAX_SEQ, r.constraint),
+                "14b: the one-slot server differs from the greedy loop")
+
+    ticker = DecodeServer(model, params, batch_slots=LM_SLOTS,
+                          max_seq=LM_MAX_SEQ).start()
+    treqs = [Request(prompt=r.prompt, max_new=r.max_new,
+                     constraint=r.constraint)
+             for r in by_len[:LM_TICKER_REQUESTS]]
+    ttickets = [None] * len(treqs)
+
+    def submit(idx):
+        for i in idx:
+            ttickets[i] = ticker.submit(treqs[i])
+    threads = [threading.Thread(target=submit, args=(
+        list(range(j, len(treqs), LM_TICKER_THREADS)),))
+        for j in range(LM_TICKER_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        require(not t.is_alive(), "14b: a submitter thread hung")
+    for t in ttickets:
+        require(t.wait(timeout=600), "14b: a ticker ticket did not resolve")
+    thread = ticker._ticker
+    ticker.stop()
+    require(not thread.is_alive(), "14b: the ticker survived stop()")
+    for r, t in zip(treqs, ttickets):
+        require(t.value == r.out and len(r.out) == r.max_new,
+                "14b: a ticker ticket does not hold its request's tokens")
+        if r.constraint is not None:
+            require(set(r.out) <= allowed,
+                    "14b: a ticker token lies outside the intersection")
+    peak_14b = torch.cuda.max_memory_allocated()
+    out["14b"] = {
+        "requests": len(reqs), "constrained": len(reqs[::2]),
+        "allowed": len(allowed), "prompt_tokens": sum(len(r.prompt)
+                                                      for r in reqs),
+        "generated": generated, "constrained_tokens": len(constrained),
+        "decode_calls": calls[0], "ticks": srv.ticks, "serve_s": serve_s,
+        "tokens_per_s": generated / serve_s,
+        "ms_per_tick": serve_s / srv.ticks * 1e3,
+        "ms_per_decode_call": serve_s / calls[0] * 1e3,
+        "greedy_requests": len(firsts), "ticker_requests": len(treqs),
+        "peak_bytes": peak_14b}
+    print(f"phase 14b DecodeServer(batch_slots={LM_SLOTS}, "
+          f"max_seq={LM_MAX_SEQ})"
+          f": {len(reqs)} requests ({len(reqs[::2])} constrained, "
+          f"{len(allowed)} allowed tokens), {out['14b']['prompt_tokens']} "
+          f"prompt tokens, {generated} generated ({len(constrained)} "
+          f"constrained, all in the intersection) in {serve_s:.2f} s: "
+          f"{generated / serve_s:.2f} generated tokens/s, {srv.ticks} ticks, "
+          f"{serve_s / srv.ticks * 1e3:.1f} ms a tick, {calls[0]} decode "
+          f"calls ({serve_s / calls[0] * 1e3:.2f} ms each); masks "
+          f"bit-identical to the CPU's; one-slot server equal to the greedy "
+          f"loop on {len(firsts)} requests; ticker served {len(treqs)} "
+          f"requests from {LM_TICKER_THREADS} threads; peak device memory "
+          f"{peak_14b} bytes")
+    out["s"]["14b"] = time.perf_counter() - t_part
+    print(f"phase 14b: {out['s']['14b']:.1f} s")
+    t_part = time.perf_counter()
+
+    # 14c: times
+    out["14c"] = time_lm(torch, model, params, cs, rng)
+    print(f"phase 14c on {out['14c']['card']}: decode step (B {LM_SLOTS}, "
+          f"cache depth {LM_MAX_SEQ}) {out['14c']['decode_step_ms']:.3f} ms "
+          f"against a {out['14c']['decode_step_bound_ms']:.3f} ms bound "
+          f"({out['14c']['decode_step_bytes']} bytes: the weights once, "
+          f"the cache, the logits; share "
+          f"{out['14c']['bound_share']:.3f}); prefill B {LM_SLOTS} x S "
+          f"{LM_PREFILL_LEN} {out['14c']['prefill_ms']:.2f} ms, "
+          f"{out['14c']['prefill_tokens_per_s']:.0f} tokens/s; server "
+          f"{out['14b']['tokens_per_s']:.2f} generated tokens/s, "
+          f"{out['14b']['ms_per_tick']:.1f} ms a tick; mask ops at V "
+          f"{cfg.vocab}, k {len(cs.masks)} (us): "
+          f"{ {k: round(x, 2) for k, x in out['14c']['mask_us'].items()} }")
+    prof = out["14c"]["profile"]
+    print(f"phase 14c profiled decode step: "
+          f"{out['14c']['device_calls_per_step']:.0f} device calls, device "
+          f"busy {out['14c']['device_busy_ms_per_step']:.3f} ms a step, "
+          f"{out['14c']['device_busy_share']:.3f} of the unprofiled step; "
+          f"cuBLAS products {prof['kernel_ms']['nvjet']:.3f} ms, bf16 "
+          f"casts {prof['kernel_ms']['bfloat16_copy']:.3f} ms (over "
+          f"{LM_PROFILED_STEPS} step)")
+    for row in prof["top"][:8]:
+        print(f"  {row['ms']:10.3f} ms  {row['calls']:6d}x  "
+              f"{row['name'][:90]}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    require(sum(launches.values()) == 0,
+            f"14: the set-intersection kernels launched {launches}")
+    out["launches"] = launches
+    out["s"]["14c"] = time.perf_counter() - t_part
+    print(f"phase 14c: {out['s']['14c']:.1f} s")
+    report["lm_serving"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -2948,6 +3400,11 @@ def main(argv=None) -> int:
     del engine, postings, results
     torch.cuda.empty_cache()
     t_phase = phase_done("13 host route", t_phase)
+
+    # phase 14: constrained LM decoding at qwen3-1.7b's full width
+    lm_launches = run_lm_serving(torch, report)
+    torch.cuda.empty_cache()
+    t_phase = phase_done("14 LM serving", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -3000,7 +3457,8 @@ def main(argv=None) -> int:
         args.report.write_text(json.dumps(report, indent=2) + "\n")
 
     print(f"kernels by path: {json.dumps(paths)}; 13a host query_batch: "
-          f"{json.dumps(host_launches)}")
+          f"{json.dumps(host_launches)}; 14 LM serving: "
+          f"{json.dumps(lm_launches)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

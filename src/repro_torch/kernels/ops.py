@@ -3,6 +3,12 @@
 A CUDA tensor launches the hand-written kernel (and raises if it cannot);
 a CPU tensor takes the plain PyTorch version.  Nothing falls back: the
 plain version runs only for a tensor that already lies on the CPU.
+
+The vocab-mask functions of constrained decoding were never kernels (plain
+``jnp`` in the JAX package) and are torch ops on any device.  Their packed
+words are int32 bit patterns of the JAX package's uint32 words (torch has
+no ``>>`` for uint32 on the CPU), as ``kernels/setops.py`` keeps its keys:
+``words.numpy().view(np.uint32)`` gives JAX's words.
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ from .bitmap_filter import bitmap_filter_cuda
 from .count import CountTable, count_block_cuda
 from .group_intersect import group_match_cuda
 
-__all__ = ["bitmap_filter", "count_block", "group_match"]
+__all__ = ["bitmap_filter", "count_block", "group_match", "pack_vocab_mask",
+           "unpack_vocab_mask", "vocab_mask_and"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -47,3 +54,37 @@ def count_block(table: CountTable) -> torch.Tensor:
         return count_block_cuda(table)
     return ref.count_block_ref(table.probes, table.cands, table.ts,
                                c_tier=table.c_tier)
+
+
+def vocab_mask_and(masks: torch.Tensor) -> torch.Tensor:
+    """Constrained-decoding mask intersection: (k, ceil(V/32)) int32 packed
+    allowed-token bitmaps -> (ceil(V/32),) packed AND.
+
+    Algorithm 2 line 1 at vocabulary scale: one group of size V, word
+    representation of width V bits, in the same packed-lane layout as the
+    filter's images.
+    """
+    out = masks[0]
+    for i in range(1, masks.shape[0]):
+        out = out & masks[i]
+    return out
+
+
+def unpack_vocab_mask(packed: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(ceil(V/32),) packed int32 -> (V,) bool allowed mask (lowest bit
+    first).  The shift is arithmetic, so a word with bit 31 set (negative)
+    still yields each bit after ``& 1``."""
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:vocab].to(torch.bool)
+
+
+def pack_vocab_mask(allowed: torch.Tensor) -> torch.Tensor:
+    """(V,) bool -> (ceil(V/32),) packed int32 (the uint32 word's bits)."""
+    v = allowed.shape[0]
+    vp = -(-v // 32) * 32
+    a = torch.nn.functional.pad(allowed.to(torch.int64), (0, vp - v))
+    shifts = torch.arange(32, dtype=torch.int64, device=allowed.device)
+    words = (a.reshape(-1, 32) << shifts).sum(dim=1)   # in [0, 2^32)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32)
