@@ -205,6 +205,39 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    512, the server's tokens/s and ms a tick, the mask ops'
                    us at V 151,936 and k 3; the three kernels' launches
                    over the phase, 0, print apart.
+ 15. the other LM families — whisper-base, xlstm-350m, zamba2-2.7b and
+               deepseek-moe-16b, in that order, each unreduced (fp32
+               weights from a seeded generator on the card, bf16
+               activations) and freed before the next; deepseek's 64.7 GB
+               of weights leave room for no second copy, so no e4m3
+               control and no bf16 copy (phase 14 shows that ``LM_TOL``
+               separates bf16 from e4m3):
+               15a 4 seeded prompts of 128 tokens (whisper also (4, 1500,
+                   80) frames from numpy): ``prefill``'s last-position
+                   logits and ``decode``'s at every position (whisper after
+                   ``encdec.prefill_cross``) against a float32 prefill and
+                   a float32 decode (TF32 off), and decode against prefill,
+                   within ``LM_TOL`` for whisper; xlstm, zamba2 and
+                   deepseek drift past it with depth in bf16 (the JAX
+                   package too), so theirs are reported and each block,
+                   fed the float32 stream, is held to ``LM_TOL`` instead;
+                   float32 decode against float32 prefill held (zamba2:
+                   reported, the reference's shared KV cache); for
+                   deepseek the (token, layer) pairs whose top-6 experts
+                   differ from float32 are counted, and only if some row
+                   fails are the rows whose applied experts differ left
+                   out, their largest error printed;
+               15b ``DecodeServer(batch_slots=4, max_seq=64)`` on 8 seeded
+                   requests (prompts log-uniform in 8-32, ``max_new``
+                   8-16), half constrained by phase 14's three masks
+                   scaled to the vocabulary: every constrained token in
+                   the intersection, a one-slot server equal to a greedy
+                   loop;
+               15c the decode step (B 4, cache depth 128) beside its bound
+                   (every weight byte once; deepseek also its active
+                   parameters'), one profiled step, prefill at B 4 x S 512
+                   (whisper: ``encode`` of 4 x 1500 frames), peak memory;
+                   the three kernels' launches, 0, print apart.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -220,8 +253,8 @@ expressions`` and ``async 10b expressions``, ``11a sharded query_batch``,
 suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
 baselines excluded), ``async 12b virtual 0.5x`` / ``1.5x``, ``async 12c
 metrics`` / ``traced`` (the first run of each), ``async 12c traced low``
-and ``12e traced suggest_batch``; 13a's and 14's counts, 0 for every
-kernel, print apart.  The
+and ``12e traced suggest_batch``; 13a's, 14's and 15's counts, 0 for
+every kernel, print apart.  The
 last lines are the kernel table as JSON (each kernel's ``launches`` on
 its main path, phase 4 or 7, and ``launches_by_path``) and ``{"ok": true,
 "device": {...}}``.  ``--report``
@@ -230,6 +263,7 @@ writes a fuller JSON report (every count, time and profile row) to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -334,10 +368,34 @@ LM_REQUESTS = 16                     # half of them constrained
 LM_PROMPT_RANGE = (8, 128)           # log-uniform prompt lengths
 LM_MAX_NEW_RANGE = (16, 64)          # uniform max_new
 LM_ALLOWED, LM_WHITELIST, LM_STOP = 60000, 90000, 1000   # the three masks
+LM_MASK_VOCAB = 151936               # phase 15 scales them to its vocabularies
 LM_TICKER_REQUESTS, LM_TICKER_THREADS = 4, 2
 LM_PREFILL_LEN = 512                 # 14c: prefill timed at B 4, S 512
 LM_PREFILL_ITERS = 5
 LM_PROFILED_STEPS = 1                # 14c: decode steps under the profiler
+
+# -- the moe, ssm_hybrid, xlstm and encdec families unreduced (phase 15) ------
+# run in this order; deepseek-moe-16b (64.7 GB of fp32 weights) last, after
+# everything before it is freed
+FAM_ARCHS = ("whisper-base", "xlstm-350m", "zamba2-2.7b", "deepseek-moe-16b")
+FAM_PROMPTS, FAM_PROMPT_LEN = 4, 128     # 15a: seeded prompts, every position
+FAM_REQUESTS = 8                         # 15b: half of them constrained
+FAM_PROMPT_RANGE = (8, 32)               # log-uniform prompt lengths
+FAM_MAX_NEW_RANGE = (8, 16)              # uniform max_new
+FAM_SLOTS, FAM_MAX_SEQ = 4, 64           # 15b: DecodeServer
+FAM_STEP_DEPTH = 128                     # 15c: decode step, B 4, depth 128
+FAM_PREFILL_LEN = 512                    # 15c: prefill B 4 x S 512 (whisper:
+FAM_PREFILL_ITERS = 3                    # encode of encoder_seq frames)
+FAM_STEP_ITERS = 10
+# the families whose bf16 logits are held to LM_TOL end to end; in the
+# others random-init depth amplifies bf16 rounding past it in the JAX
+# package too (tools/lm_drift.py; PERF.md §6), so each block is held
+FAM_E2E_HELD = ("whisper-base",)
+# a MoE block's top-k flip between bf16 and float32 on the same input needs
+# the k-th and (k+1)-th router log-probabilities this near: 16 units of
+# bf16 rounding (the router's input is rounded in the block's attention,
+# residual add and norm, and its logits sum d_model such errors)
+FAM_NEAR_TIE = 16 * 2.0 ** -8
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -2828,10 +2886,15 @@ def run_host_route(torch, engine, postings, log, results, report,
 
 # -- phase 14: constrained LM decoding at full width ---------------------------
 
+def lm_row_errs(got, want):
+    """Each logit row's relative L2 error (over the last axis)."""
+    got = got.float()
+    return (got - want).norm(dim=-1) / want.norm(dim=-1)
+
+
 def lm_row_err(got, want) -> float:
     """The largest relative L2 error of a logit row (the last axis)."""
-    got = got.float()
-    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    return float(lm_row_errs(got, want).max())
 
 
 def round_e4m3(torch, params):
@@ -2878,20 +2941,20 @@ def greedy_tokens(torch, model, params, prompt, max_new: int, max_seq: int,
             return out
 
 
-def lm_requests(rng, vocab: int, n: int, packed):
+def lm_requests(rng, vocab: int, n: int, packed,
+                prompt_range=LM_PROMPT_RANGE, max_new_range=LM_MAX_NEW_RANGE):
     """``n`` seeded requests: prompt lengths log-uniform in
-    ``LM_PROMPT_RANGE``, ``max_new`` uniform in ``LM_MAX_NEW_RANGE``, every
+    ``prompt_range``, ``max_new`` uniform in ``max_new_range``, every
     even-numbered one constrained by ``packed``."""
     from repro_torch.serve.engine import Request
 
-    lo, hi = np.log(LM_PROMPT_RANGE[0]), np.log(LM_PROMPT_RANGE[1])
+    lo, hi = np.log(prompt_range[0]), np.log(prompt_range[1])
     out = []
     for i in range(n):
         p = int(round(float(np.exp(rng.uniform(lo, hi)))))
         out.append(Request(
             prompt=rng.integers(0, vocab, p),
-            max_new=int(rng.integers(LM_MAX_NEW_RANGE[0],
-                                     LM_MAX_NEW_RANGE[1] + 1)),
+            max_new=int(rng.integers(max_new_range[0], max_new_range[1] + 1)),
             constraint=packed if i % 2 == 0 else None))
     return out
 
@@ -2999,19 +3062,11 @@ def run_lm_serving(torch, report) -> dict:
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN))).to(model.device)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            hidden = transformer.forward(params, cfg32, tokens)
-            ref = torch.stack([transformer.logits_fn(params, cfg32, h)
-                               for h in hidden])   # (B, S, V), one row a block
-        del hidden
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
+    with no_tf32(torch), torch.no_grad():
+        hidden = transformer.forward(params, cfg32, tokens)
+        ref = torch.stack([transformer.logits_fn(params, cfg32, h)
+                           for h in hidden])   # (B, S, V), one row a block
+    del hidden
     prefill = model.prefill(params, {"tokens": tokens})
     prefill_err = lm_row_err(prefill, ref[:, -1])
     cache = model.init_cache(LM_PROMPTS, LM_PROMPT_LEN)
@@ -3227,6 +3282,578 @@ def run_lm_serving(torch, report) -> dict:
     return launches
 
 
+# -- phase 15: the moe, ssm_hybrid, xlstm and encdec families, unreduced -------
+
+def take_routes(log: list, b: int, s: int, decode: bool):
+    """Empties ``log`` (the ``moe.Route``s of one forward over (b, s)
+    tokens, or of s decode steps over b) -> (top-k sets, applied sets),
+    each (layers, b, s, k) and sorted along k; None if it is empty."""
+    if not log:
+        return None
+    top, used = (np.stack([np.sort(getattr(r, f).cpu().numpy(), -1)
+                           for r in log]) for f in ("topi", "applied"))
+    log.clear()
+    k = top.shape[-1]
+    if decode:              # step-major: (s, layers, b, k)
+        return tuple(x.reshape(s, -1, b, k).transpose(1, 2, 0, 3)
+                     for x in (top, used))
+    return tuple(x.reshape(-1, b, s, k) for x in (top, used))
+
+
+def family_batch(torch, cfg, rng, b: int, s: int, device) -> dict:
+    """Seeded tokens (b, s), and for the encoder-decoder family frames
+    (b, encoder_seq, frontend_dim) from numpy."""
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s))).to(device)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.frontend_dim)).astype(np.float32)
+        ).to(device)
+    return batch
+
+
+def decode_logits(torch, model, params, batch, **kw):
+    """``model.decode`` at every position of the batch's tokens from a new
+    cache (the encoder-decoder's cross-attention KV filled by
+    ``encdec.prefill_cross`` from ``encode``), float32 (B, S, V)."""
+    from repro_torch.models import encdec
+
+    cfg, tokens = model.cfg, batch["tokens"]
+    b, s = tokens.shape
+    cache = model.init_cache(b, s)
+    if cfg.family == "encdec":
+        cache = encdec.prefill_cross(
+            params, cfg, encdec.encode(params, cfg, batch["frames"]), cache)
+    out = torch.empty((b, s, cfg.vocab), dtype=torch.float32,
+                      device=tokens.device)
+    for pos in range(s):
+        logits, cache = model.decode(params, cache, tokens[:, pos:pos + 1],
+                                     pos, **kw)
+        out[:, pos] = logits.float()
+    return out
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """float32 products in float32 (TF32 off) inside the block."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
+def prefill_logits(torch, model, params, batch, **kw):
+    """Logits at every position, (B, S, V) float32, one prompt a block."""
+    from repro_torch.models import transformer
+
+    hidden = model.hidden(params, batch, **kw)
+    return torch.stack([transformer.logits_fn(params, model.cfg, h).float()
+                        for h in hidden])
+
+
+def held_err(errs, agree, what: str, hold: bool = True) -> dict:
+    """``errs`` (rows) against ``LM_TOL`` if ``hold``: all of them, unless
+    some row past it has routes that differ (``agree`` False, MoE only):
+    then only the rows whose routes agree are held, and the largest error
+    on the others is reported."""
+    errs = errs.float().cpu().numpy().reshape(-1)
+    agree = np.ones_like(errs, bool) if agree is None else agree.reshape(-1)
+    out = {"err": float(errs.max()), "rows": int(errs.size),
+           "rows_routes_differ": int((~agree).sum()),
+           "held": "all rows" if hold else "reported only"}
+    if hold and out["err"] > LM_TOL and not agree.all():
+        out["held"] = "rows whose routes agree"
+        out["err_flipped_rows"] = float(errs[~agree].max())
+        out["err"] = float(errs[agree].max()) if agree.any() else 0.0
+    require(not hold or out["err"] <= LM_TOL,
+            f"15a: {what} {out['err']} > {LM_TOL} ({out['held']})")
+    return out
+
+
+class BlockHold:
+    """15a block by block: each bfloat16 block, fed the float32 stream's
+    input to it rounded to bfloat16, against the float32 block: the
+    largest row (token) relative L2 error of the stream after the block,
+    held to ``LM_TOL``.  In a MoE block, a token whose top-k set differs
+    must be a near-tie (the gap between its float32 k-th and (k+1)-th
+    log-probabilities within ``FAM_NEAR_TIE``), and rows whose applied
+    experts differ are left out only if some row fails; flips are
+    counted."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self.out = {"blocks": 0, "err": 0.0, "worst_block": -1,
+                    "route_flips": 0, "moe_blocks": 0, "held": "all rows",
+                    "errs": [], "blocks_held_on_agreeing_rows": 0,
+                    "err_rows_agree": 0.0, "err_rows_differ": 0.0,
+                    "rows_differ": 0, "pairs": 0, "flip_gap": 0.0}
+
+    def add(self, i: int, y16, y32, r16, r32) -> None:
+        out, agree = self.out, None
+        errs = lm_row_errs(y16, y32)
+        if r32:                          # a MoE block: one route each
+            (a16,), (a32,) = r16, r32
+            agree = (a16.applied.sort(-1)[0] == a32.applied.sort(-1)[0]
+                     ).all(-1).cpu().numpy()
+            flipped = (a16.topi.sort(-1)[0] != a32.topi.sort(-1)[0]).any(-1)
+            if flipped.any():
+                k = a32.topi.shape[-1]
+                top = a32.probs[flipped].double().log().sort(
+                    -1, descending=True)[0]
+                gap = float((top[:, k - 1] - top[:, k]).max())
+                out["flip_gap"] = max(out["flip_gap"], gap)
+                require(gap <= FAM_NEAR_TIE,
+                        f"15a: {self.what} block {i}: a route flip with a "
+                        f"log-gap {gap} > {FAM_NEAR_TIE}, no near-tie")
+            r16.clear()
+            r32.clear()
+            out["route_flips"] += int(flipped.sum())
+            out["moe_blocks"] += 1
+            out["pairs"] += int(flipped.numel())
+            errs_np = errs.float().cpu().numpy().reshape(-1)
+            out["rows_differ"] += int((~agree).sum())
+            out["err_rows_agree"] = max(out["err_rows_agree"],
+                                        float(errs_np[agree].max()))
+            if not agree.all():
+                out["err_rows_differ"] = max(out["err_rows_differ"],
+                                             float(errs_np[~agree].max()))
+        r = held_err(errs, agree, f"{self.what} block {i}")
+        out["errs"].append(r["err"])
+        if r["held"] != "all rows":
+            out["blocks_held_on_agreeing_rows"] += 1
+        if r["err"] > out["err"]:
+            out["err"], out["worst_block"], out["held"] = r["err"], i, r["held"]
+        out["blocks"] += 1
+
+
+def check_prefill_blocks(torch, model, model32, params, tokens, log) -> dict:
+    """``BlockHold`` over the prefill's blocks (``Model.blocks``); the MoE
+    blocks return (stream, aux)."""
+    from repro_torch.models import transformer
+
+    kw = {"routes": log} if model.cfg.family == "moe" else {}
+    hold, log16 = BlockHold("prefill"), []
+    kw16 = {"routes": log16} if kw else {}
+    with no_tf32(torch), torch.no_grad():
+        x = transformer._embed(params, model32.cfg, tokens)
+        for i, (b16, b32) in enumerate(zip(
+                model.blocks(params, tokens, **kw16),
+                model32.blocks(params, tokens, **kw))):
+            y32, y16 = b32(x), b16(x.to(model.cfg.activation_dtype))
+            if kw:
+                y32, y16 = y32[0], y16[0]
+            hold.add(i, y16, y32, log16, log)
+            x = y32
+    return hold.out
+
+
+def check_decode_blocks(torch, model, model32, params, tokens, log):
+    """``BlockHold`` over the decode's blocks (``Model.decode_blocks``) at
+    every position: each bfloat16 block is fed the float32 decode's input
+    to it and its float32 state (the float32 cache before the step, cast
+    to the bfloat16 cache's dtypes).  Returns the float32 decode's logits
+    (B, S, V), which these steps compute, the record, and the float32
+    decode's ``moe.Route``s (step-major)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import rmsnorm
+
+    cfg32 = model32.cfg
+    b, s = tokens.shape
+    kw = {"routes": log} if cfg32.family == "moe" else {}
+    hold, log16 = BlockHold("decode"), []
+    kw16 = {"routes": log16} if kw else {}
+    cache32 = model32.init_cache(b, s)
+    dtypes = {k: v.dtype for k, v in model.init_cache(1, 1).items()}
+    logits = torch.empty((b, s, cfg32.vocab), dtype=torch.float32,
+                         device=tokens.device)
+    routes32 = []
+    with no_tf32(torch), torch.no_grad():
+        for pos in range(s):
+            cache16 = {k: v.to(dtypes[k], copy=True)
+                       for k, v in cache32.items()}
+            x = transformer._embed(params, cfg32, tokens[:, pos:pos + 1])
+            for i, (b16, b32) in enumerate(zip(
+                    model.decode_blocks(params, cache16, pos, **kw16),
+                    model32.decode_blocks(params, cache32, pos, **kw))):
+                y32, y16 = b32(x), b16(x.to(model.cfg.activation_dtype))
+                routes32 += log
+                hold.add(i, y16, y32, log16, log)
+                x = y32
+            logits[:, pos] = transformer.logits_fn(
+                params, cfg32, rmsnorm(params.ln_f, x))[:, 0].float()
+    return logits, hold.out, routes32
+
+
+def check_family_logits(torch, model, params, batch) -> dict:
+    """15a: prefill's last-position logits against a float32 prefill, and
+    decode's at every position against a float32 decode, on the same
+    weights (TF32 off); the float32 decode against the float32 prefill at
+    every position; the bfloat16 decode against the bfloat16 prefill.  The
+    bfloat16 comparisons are held to ``LM_TOL`` for ``FAM_E2E_HELD``,
+    otherwise reported, and every block of the prefill and of the decode at
+    every position held instead (``BlockHold``; the float32 decode is then
+    the one ``check_decode_blocks`` steps through); the float32 ones are
+    held (ssm_hybrid's decode against prefill: only reported, the
+    reference's shared KV cache).  MoE: the decode's float32 prefill runs
+    at a capacity that drops nothing (decode drops nothing at B 4), rows
+    whose applied experts differ are left out only if some row fails, and
+    route flips are counted."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    is_moe = cfg.family == "moe"
+    hold = cfg.name in FAM_E2E_HELD
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32, device=model.device)
+    # decode's float32 prefill: a capacity of every token, so no drops
+    model32_nd = (build_model(dataclasses.replace(
+        cfg32, capacity_factor=cfg.n_experts / cfg.experts_per_token),
+        device=model.device) if is_moe else model32)
+    log = []
+    kw = {"routes": log} if is_moe else {}
+    out, routes = {}, {}
+    with no_tf32(torch), torch.no_grad():
+        ref = prefill_logits(torch, model32, params, batch, **kw)
+        routes["f32"] = take_routes(log, b, s, decode=False)
+        ref_nd = (prefill_logits(torch, model32_nd, params, batch, **kw)
+                  if is_moe else ref)
+        routes["f32_nd"] = take_routes(log, b, s, decode=False)
+        if hold:
+            ref_dec, dec_routes = decode_logits(
+                torch, model32, params, batch, **kw), log
+    if not hold:
+        out["blocks"] = check_prefill_blocks(torch, model, model32, params,
+                                             tokens, log)
+        ref_dec, out["decode_blocks"], dec_routes = check_decode_blocks(
+            torch, model, model32, params, tokens, log)
+    routes["f32_dec"] = take_routes(dec_routes, b, s, decode=True)
+    with torch.no_grad():
+        prefill = model.prefill(params, batch)
+        if is_moe:
+            model.hidden(params, batch, **kw)
+        routes["bf16"] = take_routes(log, b, s, decode=False)
+        dec = decode_logits(torch, model, params, batch, **kw)
+        routes["bf16_dec"] = take_routes(log, b, s, decode=True)
+    require(torch.isfinite(prefill).all() and prefill.shape == (
+        b, cfg.vocab), "15a: prefill logits not finite or misshapen")
+    require(bool(torch.isfinite(dec).all()), "15a: decode logits not finite")
+    agree = dict.fromkeys(("f32_dec_vs_prefill", "bf16_dec_vs_prefill"))
+    if is_moe:
+        # (top-k sets, applied sets), each (layers, B, S, k)
+        (t32, u32), (tnd, und), (td32, ud32), (t16, u16), (td16, ud16) = (
+            routes[k] for k in ("f32", "f32_nd", "f32_dec", "bf16",
+                                "bf16_dec"))
+        agree = {"f32_dec_vs_prefill": (ud32 == und).all(axis=(0, 3)),
+                 "bf16_dec_vs_prefill": (ud16[:, :, -1] == u16[:, :, -1])
+                 .all(axis=(0, 2))}
+        out["route_flips"] = {
+            "bf16_vs_f32_prefill": int((t16 != t32).any(-1).sum()),
+            "bf16_vs_f32_decode": int((td16 != td32).any(-1).sum()),
+            "f32_decode_vs_prefill": int((td32 != tnd).any(-1).sum()),
+            "pairs": int(t32.shape[0] * b * s)}
+        out["pairs_dropped_f32_prefill"] = int((u32 < 0).sum())
+    out["prefill"] = held_err(lm_row_errs(prefill, ref[:, -1]), None,
+                              "prefill vs float32", hold)
+    out["decode"] = held_err(lm_row_errs(dec, ref_dec), None,
+                             "decode vs float32", hold)
+    out["f32_decode_vs_prefill"] = held_err(
+        lm_row_errs(ref_dec, ref_nd), agree["f32_dec_vs_prefill"],
+        "float32 decode vs float32 prefill",
+        cfg.family != "ssm_hybrid")
+    out["decode_vs_prefill"] = held_err(
+        lm_row_errs(dec[:, -1], prefill.float()),
+        agree["bf16_dec_vs_prefill"], "decode vs prefill", hold)
+    return out
+
+
+def serve_family(torch, model, params, rng) -> dict:
+    """15b: ``DecodeServer`` on ``FAM_REQUESTS`` seeded requests, half
+    constrained by three ANDed masks (phase 14's, scaled to the
+    vocabulary); every constrained token in numpy's intersection, every
+    ticket its request's tokens, and a one-slot server on the shortest
+    constrained request equal to a greedy loop over ``model.decode``."""
+    from repro_torch.serve.constrain import ConstraintSet
+    from repro_torch.serve.engine import DecodeServer, Request
+
+    v = model.cfg.vocab
+    n_allowed, n_white, n_stop = (max(1, round(v * n / LM_MASK_VOCAB))
+                                  for n in (LM_ALLOWED, LM_WHITELIST, LM_STOP))
+    masks = {"grammar": rng.choice(v, n_allowed, replace=False),
+             "retrieval": rng.choice(v, n_white, replace=False),
+             "stoplist": np.arange(n_stop)}
+    allowed = set(np.setdiff1d(np.intersect1d(masks["grammar"],
+                                              masks["retrieval"]),
+                               masks["stoplist"]).tolist())
+    cs = ConstraintSet(v, device=model.device)
+    cs.add_allowed("grammar", masks["grammar"])
+    cs.add_allowed("retrieval", masks["retrieval"])
+    cs.add_banned("stoplist", masks["stoplist"])
+    packed = cs.combined()
+    reqs = lm_requests(rng, v, FAM_REQUESTS, packed, FAM_PROMPT_RANGE,
+                       FAM_MAX_NEW_RANGE)
+    srv = DecodeServer(model, params, batch_slots=FAM_SLOTS,
+                       max_seq=FAM_MAX_SEQ)
+    t0 = time.perf_counter()
+    tickets = [srv.submit(r) for r in reqs]
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    for r, t in zip(reqs, tickets):
+        require(r.done and t.done and t.value == r.out
+                and len(r.out) == r.max_new,
+                "15b: a ticket does not hold its request's tokens")
+        if r.constraint is not None:
+            require(set(r.out) <= allowed,
+                    "15b: a constrained token lies outside the intersection")
+    first = min((r for r in reqs if r.constraint is not None),
+                key=lambda r: len(r.prompt) + r.max_new)
+    one = DecodeServer(model, params, batch_slots=1, max_seq=FAM_MAX_SEQ)
+    again = Request(prompt=first.prompt, max_new=first.max_new,
+                    constraint=first.constraint)
+    one.submit(again)
+    one.run_until_drained()
+    require(again.out == greedy_tokens(torch, model, params, first.prompt,
+                                       first.max_new, FAM_MAX_SEQ, packed),
+            "15b: the one-slot server differs from the greedy loop")
+    generated = sum(len(r.out) for r in reqs)
+    return {"requests": len(reqs), "allowed": len(allowed),
+            "prompt_tokens": sum(len(r.prompt) for r in reqs),
+            "generated": generated,
+            "constrained_tokens": sum(len(r.out) for r in reqs
+                                      if r.constraint is not None),
+            "ticks": srv.ticks, "serve_s": serve_s,
+            "tokens_per_s": generated / serve_s,
+            "ms_per_tick": serve_s / srv.ticks * 1e3}
+
+
+def time_family(torch, model, params, rng) -> dict:
+    """15c: a decode step (B ``FAM_SLOTS``, cache depth ``FAM_STEP_DEPTH``)
+    with CUDA events beside its bound (every weight byte read once, the
+    cache read, the logits written; for the MoE family also the active
+    parameters' bytes), one profiled step (device busy time, launches),
+    and prefill at B ``FAM_SLOTS`` x S ``FAM_PREFILL_LEN`` (the
+    encoder-decoder family: ``encode`` of ``encoder_seq`` frames)."""
+    from repro_torch.models import encdec
+
+    cfg, v = model.cfg, model.cfg.vocab
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    cache = model.init_cache(FAM_SLOTS, FAM_STEP_DEPTH)
+    tok = torch.zeros((FAM_SLOTS, 1), dtype=torch.int64, device=model.device)
+
+    def step():
+        return model.decode(params, cache, tok, FAM_STEP_DEPTH - 1)
+    step_ms = cuda_ms(torch, step, iters=FAM_STEP_ITERS)
+    prof = profile_breakdown(torch, step, groups=("nvjet", "bfloat16_copy"))
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    del cache
+    extra = cache_bytes + FAM_SLOTS * v * 2
+    out = {"card": nvidia_smi(), "params": n_params,
+           "param_bytes": param_bytes, "decode_step_ms": step_ms,
+           "decode_step_bound_ms": max(
+               (param_bytes + extra) / HBM_BYTES_PER_S,
+               2 * n_params * FAM_SLOTS / BF16_OPS_PER_S) * 1e3,
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_calls": prof["device_calls"],
+           "cast_ms": prof["kernel_ms"]["bfloat16_copy"],
+           "cublas_ms": prof["kernel_ms"]["nvjet"],
+           "top": prof["top"][:6]}
+    out["bound_share"] = out["decode_step_bound_ms"] / step_ms
+    if cfg.family == "moe":
+        active = cfg.active_param_count()
+        out["active_params"] = active
+        out["active_bound_ms"] = (active * 4 + extra) / HBM_BYTES_PER_S * 1e3
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rng.standard_normal(
+            (FAM_SLOTS, cfg.encoder_seq, cfg.frontend_dim)).astype(np.float32)
+        ).to(model.device)
+        ms = cuda_ms(torch, lambda: encdec.encode(params, cfg, frames),
+                     iters=FAM_PREFILL_ITERS)
+        out.update(prefill="encode", prefill_ms=ms,
+                   prefill_tokens_per_s=FAM_SLOTS * cfg.encoder_seq / ms * 1e3)
+    else:
+        long = torch.from_numpy(rng.integers(
+            0, v, (FAM_SLOTS, FAM_PREFILL_LEN))).to(model.device)
+        ms = cuda_ms(torch, lambda: model.prefill(params, {"tokens": long}),
+                     iters=FAM_PREFILL_ITERS)
+        out.update(prefill="prefill", prefill_ms=ms,
+                   prefill_tokens_per_s=FAM_SLOTS * FAM_PREFILL_LEN / ms * 1e3)
+    return out
+
+
+def run_lm_family(torch, cfg, report) -> None:
+    """15a-15c on one architecture (see ``run_lm_families``)."""
+    import gc
+
+    from repro_torch.models.model import build_model
+
+    name = cfg.name
+    out = {"layers": cfg.n_layers, "s": {}}
+    report[name] = out
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    rng = np.random.default_rng(SEED + 15)
+
+    batch = family_batch(torch, cfg, rng, FAM_PROMPTS, FAM_PROMPT_LEN,
+                         model.device)
+    a = out["15a"] = check_family_logits(torch, model, params, batch)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    def err(key):
+        r = a[key]
+        text = f"{r['err']:.5f} ({r['held']}"
+        if "err_flipped_rows" in r:
+            text += (f"; {r['rows_routes_differ']} rows whose experts "
+                     f"differ, largest error there "
+                     f"{r['err_flipped_rows']:.5f}")
+        return text + ")"
+    frames = (f" and frames {(FAM_PROMPTS, cfg.encoder_seq, cfg.frontend_dim)}"
+              if cfg.family == "encdec" else "")
+    print(f"phase 15a {name}: {cfg.n_layers} layers, d {cfg.d_model}, V "
+          f"{cfg.vocab}, {n_params} parameters ({param_bytes} bytes, "
+          f"{cfg.param_dtype}), activations {cfg.dtype}; build and init "
+          f"{out['init_s']:.2f} s; {FAM_PROMPTS} prompts x {FAM_PROMPT_LEN}"
+          f"{frames}: largest row relative L2 error of the logits, bf16 "
+          f"against float32 (TF32 off): prefill {err('prefill')}, decode "
+          f"(every position, against a float32 decode) {err('decode')}; "
+          f"bf16 decode vs bf16 prefill {err('decode_vs_prefill')}; "
+          f"float32 decode vs float32 prefill (every position) "
+          f"{err('f32_decode_vs_prefill')}; tolerance {LM_TOL}")
+    for key, what in (("blocks", "prefill"), ("decode_blocks", "decode")):
+        if key not in a:
+            continue
+        k = a[key]
+        moe_rows = ""
+        if k["moe_blocks"]:
+            moe_rows = (f"; in MoE blocks {k['route_flips']} of {k['pairs']}"
+                        f" routes flipped (each a near-tie: largest log-gap "
+                        f"{k['flip_gap']:.5f}, bound {FAM_NEAR_TIE}), rows whose "
+                        f"applied experts agree {k['err_rows_agree']:.5f}, "
+                        f"the {k['rows_differ']} rows whose experts differ "
+                        f"{k['err_rows_differ']:.5f}; "
+                        f"{k['blocks_held_on_agreeing_rows']} blocks held "
+                        f"on the rows whose experts agree")
+        steps = (f" at each of {FAM_PROMPT_LEN} positions"
+                 if what == "decode" else "")
+        print(f"phase 15a {name} {what} block by block{steps}: "
+              f"{k['blocks']} blocks, each fed the float32 input"
+              f"{' and state' if what == 'decode' else ''}: largest row "
+              f"relative L2 error of the stream after a block {k['err']:.5f}"
+              f" (block {k['worst_block']}, {k['held']}){moe_rows}; "
+              f"tolerance {LM_TOL}")
+    if "route_flips" in a:
+        rf = a["route_flips"]
+        print(f"phase 15a {name} routes end to end: (token, layer) pairs "
+              f"whose top-{cfg.experts_per_token} experts differ, of "
+              f"{rf['pairs']}: bf16 vs float32 prefill "
+              f"{rf['bf16_vs_f32_prefill']}, bf16 vs float32 decode "
+              f"{rf['bf16_vs_f32_decode']}, float32 decode vs its prefill "
+              f"{rf['f32_decode_vs_prefill']}; pairs the float32 prefill "
+              f"drops at capacity {a['pairs_dropped_f32_prefill']}")
+    out["s"]["15a"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    b = out["15b"] = serve_family(torch, model, params, rng)
+    print(f"phase 15b {name} DecodeServer(batch_slots={FAM_SLOTS}, "
+          f"max_seq={FAM_MAX_SEQ}): {b['requests']} requests (half "
+          f"constrained, {b['allowed']} allowed tokens), "
+          f"{b['prompt_tokens']} prompt tokens, {b['generated']} generated "
+          f"({b['constrained_tokens']} constrained, all in the "
+          f"intersection) in {b['serve_s']:.2f} s: "
+          f"{b['tokens_per_s']:.2f} generated tokens/s, {b['ticks']} ticks, "
+          f"{b['ms_per_tick']:.1f} ms a tick; one-slot server equal to the "
+          f"greedy loop")
+    out["s"]["15b"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    c = out["15c"] = time_family(torch, model, params, rng)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    active = ""
+    if "active_bound_ms" in c:
+        active = (f", {c['active_bound_ms']:.3f} ms for the "
+                  f"{c['active_params']} active parameters' bytes")
+    print(f"phase 15c {name} on {c['card']}: decode step (B {FAM_SLOTS}, "
+          f"cache depth {FAM_STEP_DEPTH}) {c['decode_step_ms']:.3f} ms "
+          f"against a {c['decode_step_bound_ms']:.3f} ms bound (every "
+          f"weight byte once, the cache, the logits; share "
+          f"{c['bound_share']:.3f}{active}); profiled step: "
+          f"{c['device_calls']} device calls, device busy "
+          f"{c['device_busy_ms'] or 0.0:.3f} ms (bf16 casts "
+          f"{c['cast_ms']:.3f}, cuBLAS {c['cublas_ms']:.3f}); "
+          f"{c['prefill']} B {FAM_SLOTS} x "
+          f"{cfg.encoder_seq if c['prefill'] == 'encode' else FAM_PREFILL_LEN}"
+          f" {c['prefill_ms']:.2f} ms, {c['prefill_tokens_per_s']:.0f} "
+          f"{'frames' if c['prefill'] == 'encode' else 'tokens'}/s; peak "
+          f"device memory {out['peak_bytes']} bytes")
+    out["s"]["15c"] = time.perf_counter() - t_part
+    print(f"phase 15 {name}: {sum(out['s'].values()):.1f} s")
+
+
+def run_lm_families(torch, report) -> dict:
+    """Phase 15: the moe, ssm_hybrid, xlstm and encdec families through
+    the port's ``build_model`` and ``DecodeServer``, each at its full width
+    and depth (the ``FAM_ARCHS`` configs unreduced; fp32 weights drawn from
+    a seeded generator on the card, bf16 activations),
+    in ``FAM_ARCHS``' order, each freed before the next:
+    15a prefill's last-position logits and decode's at every position
+    against a float32 reference (TF32 off) on the same weights, and decode
+    against prefill, within ``LM_TOL`` for ``FAM_E2E_HELD``, the others
+    reported and every block of the prefill and of the decode at every
+    position held (``BlockHold``), MoE route flips counted; 15b the server on ``FAM_REQUESTS`` requests, half
+    constrained, and a one-slot server against a greedy loop; 15c the
+    decode step beside its bound, one profiled step, prefill tokens/s and
+    peak memory.  Returns the three kernels' launches over the phase (none
+    is on this path)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda, "pair_count": count_block_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    out = report["lm_families"] = {}
+    for cfg in map(get_config, FAM_ARCHS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        print(f"phase 15 {cfg.name}: device memory allocated before its "
+              f"build {before} bytes")
+        run_lm_family(torch, cfg, out)
+        out[cfg.name]["allocated_before_bytes"] = before
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {name: k.launches for name, k in kernels.items()}
+    require(sum(launches.values()) == 0,
+            f"15: the set-intersection kernels launched {launches}")
+    out["launches"] = launches
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -3405,6 +4032,10 @@ def main(argv=None) -> int:
     lm_launches = run_lm_serving(torch, report)
     torch.cuda.empty_cache()
     t_phase = phase_done("14 LM serving", t_phase)
+
+    # phase 15: the moe, ssm_hybrid, xlstm and encdec families unreduced
+    fam_launches = run_lm_families(torch, report)
+    t_phase = phase_done("15 LM families", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -3458,7 +4089,8 @@ def main(argv=None) -> int:
 
     print(f"kernels by path: {json.dumps(paths)}; 13a host query_batch: "
           f"{json.dumps(host_launches)}; 14 LM serving: "
-          f"{json.dumps(lm_launches)}")
+          f"{json.dumps(lm_launches)}; 15 LM families: "
+          f"{json.dumps(fam_launches)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,15 @@
 """Carry parameters between the JAX package's tree and the port's modules.
 
-The JAX package keeps a dense model's parameters as a nested dict with the
-layers stacked on axis 0 (``{"embed", "layers": {"ln1": {"scale": (L, d)},
-"attn": {"wq": (L, d, H, D), ...}, ...}, "ln_f", ...}``).  The port keeps
-them as ``transformer.DenseParams``, whose parameter names are that tree's
-paths with the layer index after ``layers`` (``layers.3.attn.wq``).  Both
-directions take and give numpy arrays, so neither package imports the
-other.
+The JAX package keeps a model's parameters as a nested dict whose layer
+lists are stacked on leading axes (``{"embed", "layers": {"ln1": {"scale":
+(L, d)}, "attn": {"wq": (L, d, H, D), ...}, ...}, "ln_f", ...}``).  The
+port keeps them as one ``nn.Module`` per family (``DenseParams``,
+``MoEParams``, ``SSMParams``, ``XLSTMParams``, ``EncDecParams``), whose
+parameter names are that tree's paths with the stack indices after the
+list's name: ``layers.3.attn.wq``, ``moe_layers.0.moe.w_up``, and
+``mlstm.2.1.wq`` for xLSTM's mLSTM blocks, stacked on two axes (rounds,
+blocks per round).  Both directions take and give numpy arrays, so
+neither package imports the other.
 """
 from __future__ import annotations
 
@@ -17,18 +20,36 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
+from . import encdec, moe, ssm, xlstm
 from .transformer import DenseParams
 
 Tree = Dict[str, Any]
 
+# the stacked layer lists of the JAX trees, and the axes each is stacked on
+_STACKS = {"layers": 1, "dense_layers": 1, "moe_layers": 1,
+           "enc_layers": 1, "dec_layers": 1, "slstm": 1, "mlstm": 2}
 
-def _jax_path(name: str) -> Tuple[Tuple[str, ...], int]:
-    """``layers.3.attn.wq`` -> (("layers", "attn", "wq"), 3); other names
-    -> (their parts, -1)."""
+PARAMS = {"dense": DenseParams, "vlm": DenseParams, "moe": moe.MoEParams,
+          "ssm_hybrid": ssm.SSMParams, "xlstm": xlstm.XLSTMParams,
+          "encdec": encdec.EncDecParams}
+
+
+def _jax_path(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """``layers.3.attn.wq`` -> (("layers", "attn", "wq"), (3,));
+    ``mlstm.2.1.wq`` -> (("mlstm", "wq"), (2, 1)); other names -> (their
+    parts, ())."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return ("layers",) + tuple(parts[2:]), int(parts[1])
-    return tuple(parts), -1
+    n = _STACKS.get(parts[0], 0)
+    return ((parts[0],) + tuple(parts[1 + n:]),
+            tuple(int(i) for i in parts[1:1 + n]))
+
+
+def _stack_shape(params: torch.nn.Module, root: str) -> Tuple[int, ...]:
+    """The leading axes the JAX tree stacks ``root``'s layers on."""
+    lst = getattr(params, root)
+    if _STACKS[root] == 1:
+        return (len(lst),)
+    return (len(lst), len(lst[0]))
 
 
 def _leaves(tree: Tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, ...]]:
@@ -48,23 +69,25 @@ def _get(tree: Tree, path: Tuple[str, ...]):
 
 
 def params_from_jax(cfg: ArchConfig, tree: Tree,
-                    device: Device = "cuda") -> DenseParams:
-    """The JAX package's parameter tree (numpy arrays, layers stacked on
-    axis 0) -> the port's ``DenseParams`` on ``device``.  A missing, extra
-    or misshapen parameter raises, naming its path."""
+                    device: Device = "cuda") -> torch.nn.Module:
+    """The JAX package's parameter tree (numpy arrays, layer lists stacked
+    on leading axes) -> the port's parameter module for ``cfg.family`` on
+    ``device``.  A missing, extra or misshapen parameter raises, naming its
+    path."""
     dev = resolve_device(device)
-    params = DenseParams(cfg, dev)
+    params = PARAMS[cfg.family](cfg, dev)
     seen = set()
     for name, p in params.named_parameters():
-        path, layer = _jax_path(name)
+        path, idx = _jax_path(name)
         seen.add(path)
         arr = np.asarray(_get(tree, path))
-        if layer >= 0:
-            if arr.ndim == 0 or arr.shape[0] != cfg.n_layers:
+        if idx:
+            stack = _stack_shape(params, path[0])
+            if tuple(arr.shape[:len(stack)]) != stack:
                 raise ValueError(
                     f"parameter {'/'.join(path)}: shape {arr.shape}, "
-                    f"expected {cfg.n_layers} layers on axis 0")
-            arr = arr[layer]
+                    f"expected {stack} layers on the leading axes")
+            arr = arr[idx]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(
                 f"parameter {'/'.join(path)}: shape {tuple(arr.shape)}, "
@@ -76,20 +99,22 @@ def params_from_jax(cfg: ArchConfig, tree: Tree,
     return params
 
 
-def params_to_numpy(params: DenseParams) -> Tree:
+def params_to_numpy(params: torch.nn.Module) -> Tree:
     """The port's parameters -> the JAX package's tree layout (float32
-    numpy arrays, layers stacked on axis 0)."""
+    numpy arrays, layer lists stacked on leading axes)."""
     tree: Tree = {}
     stacks: Dict[Tuple[str, ...], list] = {}
     for name, p in params.named_parameters():
-        path, layer = _jax_path(name)
+        path, idx = _jax_path(name)
         arr = p.detach().float().cpu().numpy()
-        if layer >= 0:
+        if idx:
             stacks.setdefault(path, []).append(arr)
         else:
             _put(tree, path, arr)
     for path, arrs in stacks.items():
-        _put(tree, path, np.stack(arrs))
+        # named_parameters walks the stack indices in row-major order
+        stack = _stack_shape(params, path[0])
+        _put(tree, path, np.stack(arrs).reshape(stack + arrs[0].shape))
     return tree
 
 

@@ -167,7 +167,9 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def _chunks(s: int, q_chunk: int) -> Tuple[int, int]:
-    """(chunk, count) of the query blocks; a ragged tail takes one chunk."""
+    """(chunk, count) of blocks of ``q_chunk`` along a sequence of ``s``
+    (attention's query blocks, the SSD and mLSTM chunks); a ragged tail
+    takes one chunk of ``s``."""
     q_chunk = min(q_chunk, s)
     n_chunks = max(1, s // q_chunk)
     if n_chunks * q_chunk != s:

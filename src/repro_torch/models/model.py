@@ -6,22 +6,35 @@ The port's copy of the JAX package's ``models/model.py``, serving part.
   * ``prefill(params, batch) -> last-token logits``  (inference prefill)
   * ``init_cache(batch, max_seq) -> cache``
   * ``decode(params, cache, tokens, pos) -> (logits, cache)``
+  * ``hidden(params, batch) -> final hidden states`` (B, S, d)
+  * ``blocks(params, tokens)`` / ``decode_blocks(params, cache, pos)``:
+    the stack as a list of functions of the residual stream, for
+    checking a model block by block (``moe``, ``ssm_hybrid`` and
+    ``xlstm``; None for the others)
 
-Batches are dicts of tensors on the model's device (``tokens``, and
-``patch_embeds`` for the patch frontend).  The dense family (``dense``,
-``vlm``) is ported; the others raise ``NotImplementedError``.  ``loss``
+The MoE family's ``hidden``, ``blocks``, ``decode`` and ``decode_blocks``
+also take ``routes=`` (a list each MoE layer call appends its
+``moe.Route`` to); the others refuse it.
+
+Batches are dicts of tensors on the model's device (``tokens``;
+``patch_embeds`` for the patch frontend; ``frames`` (B, T_enc,
+frontend_dim) for the encoder-decoder family).  Every family is ported:
+``dense`` and ``vlm`` (``transformer``), ``moe``, ``ssm_hybrid``
+(``ssm``), ``xlstm`` and ``encdec``.  As in the JAX package, ``decode``
+of an encoder-decoder model attends to the cache's cross-attention KV,
+which only ``encdec.prefill_cross`` fills (zeros otherwise).  ``loss``
 and ``batch_spec`` come with training and the dry-run tools.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
-from . import transformer
+from . import encdec, moe, ssm, transformer, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,34 +45,45 @@ class Model:
     prefill: Callable
     init_cache: Callable
     decode: Callable
+    hidden: Callable
+    blocks: Optional[Callable] = None
+    decode_blocks: Optional[Callable] = None
 
 
-def _dense_model(cfg: ArchConfig, device: torch.device) -> Model:
+_MODULES = {
+    "dense": transformer,
+    "vlm": transformer,
+    "moe": moe,
+    "ssm_hybrid": ssm,
+    "xlstm": xlstm,
+    "encdec": encdec,
+}
+
+
+def build_model(cfg: ArchConfig, device: Device = "cuda") -> Model:
+    device = resolve_device(device)
+    module = _MODULES[cfg.family]
+
     def prefill(params, batch):
-        hidden = transformer.forward(params, cfg, batch["tokens"],
-                                     batch.get("patch_embeds"))
+        hidden = module.hidden(params, cfg, batch)
         return transformer.logits_fn(params, cfg, hidden[:, -1])
+
+    def bind(name: str) -> Optional[Callable]:
+        """``module.name(params, cfg, ...)`` as ``(params, ...)``."""
+        fn = getattr(module, name, None)
+        if fn is None:
+            return None
+        return lambda params, *args, **kw: fn(params, cfg, *args, **kw)
 
     return Model(
         cfg=cfg,
         device=device,
-        init=lambda gen: transformer.init_params(gen, cfg, device),
+        init=lambda gen: module.init_params(gen, cfg, device),
         prefill=prefill,
-        init_cache=lambda b, s, dtype=None: transformer.init_cache(
+        init_cache=lambda b, s, dtype=None: module.init_cache(
             cfg, b, s, dtype, device=device),
-        decode=lambda params, cache, tokens, pos: transformer.decode_step(
-            params, cfg, cache, tokens, pos),
+        decode=bind("decode_step"),
+        hidden=bind("hidden"),
+        blocks=bind("blocks"),
+        decode_blocks=bind("decode_blocks"),
     )
-
-
-_FAMILIES = {"dense": _dense_model, "vlm": _dense_model}
-_UNPORTED = ("moe", "ssm_hybrid", "xlstm", "encdec")
-
-
-def build_model(cfg: ArchConfig, device: Device = "cuda") -> Model:
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"moe, ssm_hybrid, xlstm and encdec families are ROADMAP item "
-            f"11b")
-    return _FAMILIES[cfg.family](cfg, resolve_device(device))

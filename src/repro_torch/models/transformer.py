@@ -208,6 +208,12 @@ def forward(params: DenseParams, cfg: ArchConfig, tokens: torch.Tensor,
     return rmsnorm(params.ln_f, x)
 
 
+def hidden(params: DenseParams, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The batch's final hidden states (B, S, d) (``patch_embeds`` for the
+    patch frontend)."""
+    return forward(params, cfg, batch["tokens"], batch.get("patch_embeds"))
+
+
 def logits_fn(params: DenseParams, cfg: ArchConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     emb = getattr(params, "unembed", params.embed)

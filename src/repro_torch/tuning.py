@@ -29,7 +29,7 @@ _UNPORTED: Dict[str, str] = {
     "micro_tokens": "11c",     # train/step.py's microbatching
     "remat": "11c",            # remat_wrap (training)
     "grad_bf16": "11c",        # the loss cotangent's cast (training)
-    "capacity_factor": "11b",  # the moe family
+    "capacity_factor": "11d",  # parallel/: the sharded MoE dispatch
     "seq_shard_mlp": "11d",    # parallel/: sequence-parallel MLP
     "flash_decode": "11d",     # parallel/: flash decode over shards
 }

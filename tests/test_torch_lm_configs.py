@@ -88,12 +88,11 @@ def test_tuning_parse_matches_jax(spec):
 
 
 @pytest.mark.parametrize("name", sorted(jax_tuning._DEFAULTS.keys() -
-                                        {"q_chunk", "scores_dtype",
-                                         "gqa_native", "act_bf16"}))
+                                        tuning._DEFAULTS.keys()))
 def test_tuning_unported_knobs_raise(name):
     """A JAX knob whose reader the port lacks is refused, not ignored."""
     item = tuning._UNPORTED[name]
-    assert item in ("11b", "11c", "11d")
+    assert item in ("11c", "11d")
     spec = f"{name}={jax_tuning._DEFAULTS[name]}"
     jax_tuning.parse(spec)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):

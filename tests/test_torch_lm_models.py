@@ -11,15 +11,9 @@ qwen3-1.7b also runs at its own widths, one layer and a 4096-token
 vocabulary, the widths ``chip_smoke.py`` phase 14 runs on the card
 (measured: float32 6.9e-7, bfloat16 9.7e-3 of the largest magnitude).
 
-Modes and tolerances, as a share of the largest magnitude of the JAX
-output: float32, ``FP32_TOL`` 1e-5 (float32 rounds at 2^-24; the two
-packages sum in other orders and use their own transcendentals, a few ulps
-through two layers; measured below 1e-6); bfloat16, with the default knobs
-and with ``q_chunk=16, scores_dtype="bf16", gqa_native=True,
-act_bf16=True``, ``BF16_TOL`` 5e-2 (bf16 rounds at 2^-9; XLA keeps f32
-across fused elementwise ops where torch rounds after each op, and two
-layers of about ten rounding sites each compound that; measured up to
-1.5e-2).
+Modes and tolerances are ``tests/_torch_lm.py``'s: float32 within 1e-5
+and bfloat16 (default knobs, and ``KNOBS``) within 5e-2 of the largest
+magnitude of the JAX output; measured below 1e-6 and up to 1.5e-2 here.
 """
 import dataclasses
 
@@ -30,68 +24,23 @@ import pytest
 import torch
 
 from repro import tuning as jax_tuning
-from repro.configs import get_config as jax_get_config
-from repro.configs import smoke_config as jax_smoke_config
 from repro.models import transformer as jax_transformer
-from repro.models.model import build_model as jax_build_model
 
 from repro_torch import tuning
-from repro_torch.configs import ARCH_IDS, get_config, smoke_config
-from repro_torch.models import transformer
-from repro_torch.models.convert import params_from_jax, params_to_numpy
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.models import encdec, moe, ssm, transformer, xlstm
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.layers import rmsnorm
 from repro_torch.models.model import build_model
+
+from _torch_lm import (
+    MODES, assert_close, assert_init_shapes, assert_round_trip, batches,
+    pair,
+)
 
 DENSE = ("qwen3-1.7b", "starcoder2-3b", "starcoder2-15b", "gemma3-12b",
          "phi-3-vision-4.2b")
-UNPORTED = tuple(a for a in ARCH_IDS if a not in DENSE)
-FP32_TOL = 1e-5
-BF16_TOL = 5e-2
-KNOBS = dict(q_chunk=16, scores_dtype="bf16", gqa_native=True, act_bf16=True)
-MODES = {"fp32": ("float32", {}, FP32_TOL),
-         "bf16": ("bfloat16", {}, BF16_TOL),
-         "bf16_knobs": ("bfloat16", KNOBS, BF16_TOL)}
 B, S, DECODE_STEPS, MAX_SEQ = 2, 80, 8, 16
-FULL_WIDTH_VOCAB = 4096
-
-
-def assert_close(port: torch.Tensor, ref, tol: float) -> None:
-    want = np.asarray(jnp.asarray(ref).astype(jnp.float32))
-    got = port.float().numpy()
-    assert got.shape == want.shape
-    err = float(np.abs(got - want).max())
-    assert err <= tol * float(np.abs(want).max()), (err, np.abs(want).max())
-
-
-def pair(arch: str, dtype: str = "float32", full_width: bool = False):
-    """(jax cfg, jax model, jax params, port cfg, port model, port params)
-    at the smoke config, or at the arch's own widths with one layer and a
-    ``FULL_WIDTH_VOCAB``-token vocabulary; JAX's PRNGKey(0) weights in
-    both."""
-    jcfg, cfg = jax_get_config(arch), get_config(arch)
-    if full_width:
-        jcfg, cfg = (dataclasses.replace(c, n_layers=1, vocab=FULL_WIDTH_VOCAB)
-                     for c in (jcfg, cfg))
-    else:
-        jcfg, cfg = jax_smoke_config(jcfg), smoke_config(cfg)
-    jcfg, cfg = (dataclasses.replace(c, dtype=dtype) for c in (jcfg, cfg))
-    jmodel = jax_build_model(jcfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
-    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams),
-                             "cpu")
-    return jcfg, jmodel, jparams, cfg, build_model(cfg, device="cpu"), params
-
-
-def batches(cfg, seed=0):
-    rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    jb = {"tokens": jnp.asarray(tokens)}
-    tb = {"tokens": torch.from_numpy(tokens.astype(np.int64))}
-    if cfg.frontend == "patch":
-        pe = rng.standard_normal(
-            (B, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)
-        jb["patch_embeds"] = jnp.asarray(pe)
-        tb["patch_embeds"] = torch.from_numpy(pe)
-    return jb, tb
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -111,7 +60,7 @@ def test_qwen3_full_width_matches_jax(mode):
 def check_against_jax(arch: str, mode: str, full_width: bool = False):
     dtype, knobs, tol = MODES[mode]
     jcfg, jmodel, jparams, cfg, model, params = pair(arch, dtype, full_width)
-    jb, tb = batches(cfg)
+    jb, tb = batches(cfg, B, S)
     with jax_tuning.overrides(**knobs), tuning.overrides(**knobs):
         jfwd = jax.jit(lambda p, b: jax_transformer.forward(
             p, jcfg, b["tokens"], b.get("patch_embeds")))
@@ -143,7 +92,7 @@ def test_gemma3_window_shapes_the_output():
     """gemma3's smoke layers are both local (window 64); beyond position 64
     its hidden states differ from the same weights with full attention."""
     _, _, _, cfg, _, params = pair("gemma3-12b")
-    _, tb = batches(cfg)
+    _, tb = batches(cfg, B, S)
     local = transformer.forward(params, cfg, tb["tokens"])
     full = transformer.forward(
         params, dataclasses.replace(cfg, sliding_window=None), tb["tokens"])
@@ -153,17 +102,8 @@ def test_gemma3_window_shapes_the_output():
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_params_round_trip(arch):
-    jcfg, _, jparams, cfg, _, params = pair(arch)
-    tree = jax.tree_util.tree_map(np.asarray, jparams)
-    back = params_to_numpy(params)
-    assert jax.tree_util.tree_structure(back) == \
-        jax.tree_util.tree_structure(tree)
-    for got, want in zip(jax.tree_util.tree_leaves(back),
-                         jax.tree_util.tree_leaves(tree)):
-        np.testing.assert_array_equal(got, want)
-    assert sum(p.numel() for p in params.parameters()) == sum(
-        x.size for x in jax.tree_util.tree_leaves(tree))
-    assert all(not p.requires_grad for p in params.parameters())
+    _, _, jparams, _, _, params = pair(arch)
+    assert_round_trip(jparams, params)
 
 
 def test_params_from_jax_names_the_bad_path():
@@ -187,16 +127,10 @@ def test_params_from_jax_names_the_bad_path():
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_port_init_has_the_jax_tree_shapes(arch):
-    jcfg, _, jparams, cfg, model, _ = pair(arch)
-    gen = torch.Generator().manual_seed(0)
-    params = model.init(gen)
-    tree = params_to_numpy(params)
-    assert jax.tree_util.tree_map(np.shape, tree) == \
-        jax.tree_util.tree_map(np.shape, jparams)
-    np.testing.assert_array_equal(tree["ln_f"]["scale"], 1.0)
-    again = params_to_numpy(model.init(torch.Generator().manual_seed(0)))
-    np.testing.assert_array_equal(again["embed"], tree["embed"])
-    _, tb = batches(cfg)
+    _, _, jparams, cfg, model, _ = pair(arch)
+    assert_init_shapes(model, jparams)
+    params = model.init(torch.Generator().manual_seed(0))
+    _, tb = batches(cfg, B, S)
     assert torch.isfinite(model.prefill(params, tb)).all()
 
 
@@ -211,10 +145,69 @@ def test_build_model_on_cuda_without_gpu_raises(monkeypatch):
         transformer.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         transformer.init_params(torch.Generator(), cfg, "cuda")
+    for arch, module in (("deepseek-moe-16b", moe), ("zamba2-2.7b", ssm),
+                         ("xlstm-350m", xlstm), ("whisper-base", encdec)):
+        cfg = smoke_config(get_config(arch))
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            module.init_params(torch.Generator(), cfg, "cuda")
+        with pytest.raises(RuntimeError, match="cuda"):
+            module.init_cache(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = smoke_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match="11b"):
-        build_model(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ("deepseek-moe-16b", "zamba2-2.7b",
+                                  "xlstm-350m"))
+def test_blocks_compose_to_hidden_and_decode(arch):
+    """``Model.blocks`` and ``Model.decode_blocks``, run in turn over the
+    embedded tokens, give ``Model.hidden`` and ``Model.decode`` and their
+    caches exactly: the lists ``chip_smoke.py`` holds block by block are
+    the stack that serves."""
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    _, tb = batches(cfg, B, 16)
+    tokens = tb["tokens"]
+    x = transformer._embed(params, cfg, tokens)
+    for block in model.blocks(params, tokens):
+        x = block(x)
+        x = x[0] if isinstance(x, tuple) else x     # MoE: (stream, aux)
+    assert torch.equal(rmsnorm(params.ln_f, x), model.hidden(params, tb))
+    served, stepped = model.init_cache(B, 16), model.init_cache(B, 16)
+    for pos in range(4):
+        tok = tokens[:, pos:pos + 1]
+        want, served = model.decode(params, served, tok, pos)
+        x = transformer._embed(params, cfg, tok)
+        for block in model.decode_blocks(params, stepped, pos):
+            x = block(x)
+        got = transformer.logits_fn(params, cfg, rmsnorm(params.ln_f, x))
+        assert torch.equal(got[:, 0], want)
+    for name in served:
+        assert torch.equal(served[name], stepped[name])
+
+
+def test_routes_only_on_the_moe_family():
+    """``routes=`` is the MoE family's (one ``moe.Route`` per MoE layer
+    call); every other family refuses it, and only the families held block
+    by block have block lists."""
+    for arch in ("qwen3-1.7b", "whisper-base", "zamba2-2.7b", "xlstm-350m",
+                 "deepseek-moe-16b"):
+        cfg = smoke_config(get_config(arch))
+        model = build_model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        _, tb = batches(cfg, B, 8)
+        log = []
+        if cfg.family != "moe":
+            with pytest.raises(TypeError, match="routes"):
+                model.hidden(params, tb, routes=log)
+            assert (model.blocks is None) == (cfg.family in ("dense",
+                                                              "encdec"))
+            continue
+        model.hidden(params, tb, routes=log)
+        assert len(log) == cfg.n_layers - cfg.first_dense_layers
+        k = cfg.experts_per_token
+        for r in log:
+            assert r.probs.shape == (B * 8, cfg.n_experts)
+            assert r.topi.shape == r.applied.shape == (B * 8, k)
+            assert ((r.applied == r.topi) | (r.applied == -1)).all()

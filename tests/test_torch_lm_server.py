@@ -12,32 +12,23 @@ server's cross-slot cache writes (a request's tokens depend on what shares
 its batch; the port keeps that), a prompt longer than ``max_seq`` (the
 cache write clamps to the last row), and the background ticker.
 """
-import dataclasses
 import threading
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import ArchConfig as JaxArchConfig
-from repro.configs import get_config as jax_get_config
-from repro.configs import smoke_config as jax_smoke_config
-from repro.models.model import build_model as jax_build_model
-from repro.serve.constrain import ConstraintSet as JaxConstraintSet
 from repro.serve.engine import DecodeServer as JaxDecodeServer
 from repro.serve.engine import Request as JaxRequest
 
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import EXEC_COUNTERS
-from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import build_model
-from repro_torch.serve.constrain import ConstraintSet
 from repro_torch.serve.engine import DecodeServer, Request
 
-FP32_TOL = 1e-5
-CPU = "cpu"
+from _torch_lm import (
+    CPU, FP32_TOL, assert_same_run, make_pair, serve_both,
+)
 
 # examples/constrained_decode.py's model and tests/test_substrate.py's TINY
 DEMO = dict(name="demo-tiny", family="dense", n_layers=2, d_model=128,
@@ -52,91 +43,6 @@ TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
 def _reset_port_counters():
     EXEC_COUNTERS.reset()
     yield
-
-
-@dataclasses.dataclass
-class Pair:
-    jmodel: object
-    jparams: object
-    model: object
-    params: object
-
-    @property
-    def vocab(self):
-        return self.model.cfg.vocab
-
-
-def make_pair(fields=None, arch=None) -> Pair:
-    if arch is not None:
-        jcfg = jax_smoke_config(jax_get_config(arch))
-        cfg = smoke_config(get_config(arch))
-    else:
-        jcfg, cfg = JaxArchConfig(**fields), ArchConfig(**fields)
-    jmodel = jax_build_model(jcfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
-    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams),
-                             CPU)
-    return Pair(jmodel, jparams, build_model(cfg, device=CPU), params)
-
-
-def record(server, to_numpy):
-    calls = []
-    decode = server._decode
-
-    def recorded(params, cache, tokens, pos):
-        logits, cache = decode(params, cache, tokens, pos)
-        calls.append(to_numpy(logits))
-        return logits, cache
-    server._decode = recorded
-    return calls
-
-
-def serve_both(pair: Pair, scripts, batch_slots: int, max_seq: int,
-               constraints=None):
-    """``scripts``: (prompt, max_new, constraint name or None) triples;
-    ``constraints``: name -> (allowed sets, banned sets).  Returns the
-    port's and JAX's outputs and recorded logits."""
-    jsrv = JaxDecodeServer(pair.jmodel, pair.jparams, batch_slots=batch_slots,
-                           max_seq=max_seq)
-    srv = DecodeServer(pair.model, pair.params, batch_slots=batch_slots,
-                       max_seq=max_seq)
-    jcalls = record(jsrv, lambda x: np.asarray(x))
-    calls = record(srv, lambda x: x.numpy().copy())
-    masks, jmasks = {}, {}
-    for name, (allowed, banned) in (constraints or {}).items():
-        cs, jcs = ConstraintSet(pair.vocab, device=CPU), JaxConstraintSet(
-            pair.vocab)
-        for i, ids in enumerate(allowed):
-            cs.add_allowed(f"a{i}", ids)
-            jcs.add_allowed(f"a{i}", ids)
-        for i, ids in enumerate(banned):
-            cs.add_banned(f"b{i}", ids)
-            jcs.add_banned(f"b{i}", ids)
-        masks[name], jmasks[name] = cs.combined(), jcs.combined()
-    reqs, jreqs, tickets, jtickets = [], [], [], []
-    for prompt, max_new, c in scripts:
-        prompt = np.asarray(prompt)
-        reqs.append(Request(prompt=prompt, max_new=max_new,
-                            constraint=masks.get(c)))
-        jreqs.append(JaxRequest(prompt=prompt, max_new=max_new,
-                                constraint=jmasks.get(c)))
-        tickets.append(srv.submit(reqs[-1]))
-        jtickets.append(jsrv.submit(jreqs[-1]))
-    srv.run_until_drained()
-    jsrv.run_until_drained()
-    for r, t, jr, jt in zip(reqs, tickets, jreqs, jtickets):
-        assert r.done and jr.done
-        assert t.done and t.value == r.out and jt.value == jr.out
-    return ([r.out for r in reqs], [r.out for r in jreqs], calls, jcalls,
-            srv, jsrv)
-
-
-def assert_same_run(out, jout, calls, jcalls):
-    assert out == jout
-    assert len(calls) == len(jcalls)
-    for got, want in zip(calls, jcalls):
-        assert got.shape == want.shape
-        assert np.abs(got - want).max() <= FP32_TOL * np.abs(want).max()
 
 
 def test_constrained_decode_example_matches_jax():
