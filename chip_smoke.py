@@ -190,7 +190,7 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    prefill, each within ``LM_TOL`` (largest row relative L2
                    error); the same comparison with the weights rounded to
                    e4m3 must fail it;
-               14b ``DecodeServer(batch_slots=4, max_seq=512)`` on 16
+               14b ``DecodeServer(batch_slots=4, max_seq=512)`` on 8
                    seeded requests (prompts log-uniform in 8-128,
                    ``max_new`` 16-64), half constrained by three masks (an
                    allowed set, a whitelist, a banned stop-list): every
@@ -212,7 +212,7 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                of weights leave room for no second copy, so no e4m3
                control and no bf16 copy (phase 14 shows that ``LM_TOL``
                separates bf16 from e4m3):
-               15a 4 seeded prompts of 128 tokens (whisper also (4, 1500,
+               15a 4 seeded prompts of 64 tokens (whisper also (4, 1500,
                    80) frames from numpy): ``prefill``'s last-position
                    logits and ``decode``'s at every position (whisper after
                    ``encdec.prefill_cross``) against a float32 prefill and
@@ -227,7 +227,7 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    differ from float32 are counted, and only if some row
                    fails are the rows whose applied experts differ left
                    out, their largest error printed;
-               15b ``DecodeServer(batch_slots=4, max_seq=64)`` on 8 seeded
+               15b ``DecodeServer(batch_slots=4, max_seq=64)`` on 4 seeded
                    requests (prompts log-uniform in 8-32, ``max_new``
                    8-16), half constrained by phase 14's three masks
                    scaled to the vocabulary: every constrained token in
@@ -238,6 +238,43 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    parameters'), one profiled step, prefill at B 4 x S 512
                    (whisper: ``encode`` of 4 x 1500 frames), peak memory;
                    the three kernels' launches, 0, print apart.
+ 16. LM training — the port's ``train`` package on the card (tuning knobs
+               at JAX's defaults: ``remat="full"``, ``xent_chunk`` 256;
+               batches ``SyntheticLMData(vocab, 4, 512)``, AdamW
+               ``lr=3e-4, warmup_steps=2, total_steps=100``):
+               16a qwen3-1.7b unreduced (fp32 weights from seed 0, bf16
+                   activations, fp32 AdamW state): the first step's loss
+                   and gradients against a float32 step (TF32 off) on the
+                   same weights and batch, loss within 1% relative, the
+                   global gradient norm within 5%, every parameter's
+                   gradient cosine at least 0.99; one float32 step at
+                   ``microbatch`` 2 against 1 (its m within 1e-4
+                   relative); then 8 steps: every loss finite and the mean
+                   of the last two below the first; params, m and v bytes
+                   and the peak memory;
+               16b ``train.loop.train`` at ``smoke_config(qwen3-1.7b)``: 6
+                   steps straight against 3, a checkpoint (the JAX
+                   package's layout, under ``build/``) and a resume to 6,
+                   losses within 1e-6 relative;
+               16c 16a's step time (CUDA events, median of 5 after 2
+                   warm-ups) beside its bound (6 N per token plus causal
+                   attention at the dense bf16 peak, plus AdamW's 28 bytes
+                   a parameter at the memory rate), tokens/s, and one
+                   profiled step: device calls, busy share, top device ops;
+               16d whisper-base (with frames), xlstm-350m and zamba2-2.7b
+                   unreduced, deepseek-moe-16b at its widths with its dense
+                   block and the most MoE blocks whose 16 bytes a parameter
+                   fit 60 GB, in that order, each freed before the next: a
+                   first step against float32 (whisper held as 16a; the
+                   others' loss held end to end, their end-to-end cosines
+                   reported, and each block's backward held: fed the
+                   float32 stream and cotangent, every parameter's
+                   gradient cosine at least 0.9 and the input cotangent
+                   within 25% relative L2), then 3
+                   steps with finite losses; zamba2 at 32 positions and
+                   xlstm at 64 (the reference's Mamba2 and mLSTM gradients
+                   are NaN past them, ``TRAIN_SSD_SEQ``); the three
+                   kernels' launches, 0, print apart.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -253,8 +290,8 @@ expressions`` and ``async 10b expressions``, ``11a sharded query_batch``,
 suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
 baselines excluded), ``async 12b virtual 0.5x`` / ``1.5x``, ``async 12c
 metrics`` / ``traced`` (the first run of each), ``async 12c traced low``
-and ``12e traced suggest_batch``; 13a's, 14's and 15's counts, 0 for
-every kernel, print apart.  The
+and ``12e traced suggest_batch``; 13a's, 14's, 15's and 16's counts, 0
+for every kernel, print apart.  The
 last lines are the kernel table as JSON (each kernel's ``launches`` on
 its main path, phase 4 or 7, and ``launches_by_path``) and ``{"ok": true,
 "device": {...}}``.  ``--report``
@@ -364,7 +401,11 @@ LM_PROMPTS, LM_PROMPT_LEN = 4, 256   # 14a: seeded prompts, every position
 # evaluations of one function, so they are held to the same bound.
 LM_TOL = 0.08
 LM_SLOTS, LM_MAX_SEQ = 4, 512        # 14b: DecodeServer
-LM_REQUESTS = 16                     # half of them constrained
+# 14b, 15a and 15b are cut to keep the script well inside its time limit
+# on a slow host (the run that added phase 16 took 1082.6 s, 14b 153 s and
+# 15 304 s of it): 8 requests here (was 16), 4 in 15b (was 8), 64
+# positions in 15a (was 128)
+LM_REQUESTS = 8                      # half of them constrained
 LM_PROMPT_RANGE = (8, 128)           # log-uniform prompt lengths
 LM_MAX_NEW_RANGE = (16, 64)          # uniform max_new
 LM_ALLOWED, LM_WHITELIST, LM_STOP = 60000, 90000, 1000   # the three masks
@@ -378,8 +419,8 @@ LM_PROFILED_STEPS = 1                # 14c: decode steps under the profiler
 # run in this order; deepseek-moe-16b (64.7 GB of fp32 weights) last, after
 # everything before it is freed
 FAM_ARCHS = ("whisper-base", "xlstm-350m", "zamba2-2.7b", "deepseek-moe-16b")
-FAM_PROMPTS, FAM_PROMPT_LEN = 4, 128     # 15a: seeded prompts, every position
-FAM_REQUESTS = 8                         # 15b: half of them constrained
+FAM_PROMPTS, FAM_PROMPT_LEN = 4, 64      # 15a: seeded prompts, every position
+FAM_REQUESTS = 4                         # 15b: half of them constrained
 FAM_PROMPT_RANGE = (8, 32)               # log-uniform prompt lengths
 FAM_MAX_NEW_RANGE = (8, 16)              # uniform max_new
 FAM_SLOTS, FAM_MAX_SEQ = 4, 64           # 15b: DecodeServer
@@ -396,6 +437,55 @@ FAM_E2E_HELD = ("whisper-base",)
 # bf16 rounding (the router's input is rounded in the block's attention,
 # residual add and norm, and its logits sum d_model such errors)
 FAM_NEAR_TIE = 16 * 2.0 ** -8
+
+# -- LM training (phase 16) ----------------------------------------------------
+TRAIN_ARCH = LM_ARCH                 # 16a, 16c: qwen3-1.7b unreduced
+TRAIN_BATCH, TRAIN_SEQ = 4, 512      # SyntheticLMData(vocab, 4, 512)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+TRAIN_STEPS = 8                      # 16a: the stream must be learned
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5     # 16c: median of steps 3-7 (CUDA events)
+# 16a/16d: a bf16 first step against a float32 one (TF32 off), same
+# weights and batch.  The loss is a mean over 2048 tokens of a float32
+# cross entropy of bf16 logits: bf16 rounds at 2^-9 and depth compounds it
+# in the hidden states (phase 14: 2.2% row error of the logits at 28
+# layers), but a mean of 2048 rows averages row errors of either sign, so
+# 1% is a loose bound.  A gradient sums B*S products of two such streams
+# (forward and backward): 5% on the global norm, and each parameter's
+# gradient direction within 8 degrees (cosine 0.99).  CPU rehearsals at
+# the smoke configs (2 and 8 layers): see PERF.md section 6.
+TRAIN_LOSS_TOL = 0.01
+TRAIN_GNORM_TOL = 0.05
+TRAIN_COSINE = 0.99
+TRAIN_MICRO_TOL = 1e-4               # microbatch 2 vs 1, float32: sum orders
+TRAIN_RESUME = (3, 6)                # 16b: 3 steps + resume to 6 vs 6 straight
+TRAIN_RESUME_TOL = 1e-6              # relative, per loss
+TRAIN_FAM_STEPS = 3                  # 16d: steps after the held first one
+# 16d: grads held end to end as 16a; the others' loss end to end and their
+# gradients block by block (``grad_blocks``): random-init depth amplifies
+# bf16 rounding in their backward in the JAX package as well
+# (``tools/lm_drift.py --grads``; PERF.md section 6)
+TRAIN_FAM_HELD = ("whisper-base",)
+# 16d block by block: each bf16 block's backward, fed the float32 stream
+# and cotangent, against the float32 block's.  On the CPU at full depth
+# (tools/grad_drift.py; PERF.md section 6) the JAX package's bf16 blocks
+# reach a parameter-gradient cosine of 0.978 (an mLSTM's gate weights
+# w_if, the same in the port to four digits: their gradient sums B*S
+# terms that nearly cancel, from gate pre-activations rounded to bf16 in
+# both packages) and an input cotangent error of 0.125 (a zamba2 Mamba2
+# block at widths / 4; the port 0.117), and the port's blocks track JAX's
+# block for block.  The bounds leave 4.5x on 1 - cosine and 2x on the
+# error for other draws; a wrong backward (a dropped term, a sign, a
+# detached path) misses both by far more.
+TRAIN_BLOCK_COSINE = 0.9
+TRAIN_BLOCK_DX = 0.25
+# 16d: the reference's chunked Mamba2 and mLSTM backward is NaN once a
+# chunk spans enough positions (``where(causal, exp(delta), 0)``: exp
+# overflows above the diagonal and its gradient there is 0 * inf; ROADMAP
+# queue 3): from 128 at the smoke configs, from 64 at zamba2-2.7b's full
+# width on the card (finite at 32).  The port keeps the reference's
+# semantics, so zamba2 trains at 32 positions and xlstm at 64
+TRAIN_SSD_SEQ = {"ssm_hybrid": 32, "xlstm": 64}
+TRAIN_MOE_BYTES = 60e9               # 16d: deepseek's 16 bytes a parameter
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -3854,6 +3944,487 @@ def run_lm_families(torch, report) -> dict:
     return launches
 
 
+# -- phase 16: LM training -----------------------------------------------------
+
+def train_seq(cfg) -> int:
+    return TRAIN_SSD_SEQ.get(cfg.family, TRAIN_SEQ)
+
+
+def train_batch(torch, cfg, step: int, device) -> dict:
+    """``SyntheticLMData(cfg.vocab, TRAIN_BATCH, train_seq(cfg))
+    .batch_at(step)`` on ``device`` (and for the encoder-decoder family
+    seeded frames)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.loop import to_device
+
+    data = SyntheticLMData(cfg.vocab, TRAIN_BATCH, train_seq(cfg), seed=SEED)
+    batch = to_device(data.batch_at(step), device)
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(SEED + 16 + step)
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, cfg.encoder_seq, cfg.frontend_dim)).astype(
+                np.float32)).to(device)
+    return batch
+
+
+def hold_first_step(torch, model, params, batch, grads_held: bool) -> dict:
+    """The bf16 model's loss and gradients on ``batch`` against a float32
+    model's (TF32 off) on the same weights: the loss within
+    ``TRAIN_LOSS_TOL`` (relative), and with ``grads_held`` the global
+    gradient norm within ``TRAIN_GNORM_TOL`` and every parameter's
+    gradient cosine at least ``TRAIN_COSINE`` (reported either way)."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.step import value_and_grad
+
+    cfg = model.cfg
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                          device=model.device)
+    loss, grads = value_and_grad(model, params, batch)
+    with no_tf32(torch):
+        loss32, grads32 = value_and_grad(model32, params, batch)
+    cos = {n: float(torch.sum(g.float() * grads32[n])
+                    / (g.float().norm() * grads32[n].norm()).clamp_min(1e-30))
+           for n, g in grads.items()}
+    worst = min(cos, key=cos.get)
+    gn, gn32 = float(global_norm(grads)), float(global_norm(grads32))
+    out = {"loss": float(loss), "loss_f32": float(loss32),
+           "loss_err": abs(float(loss) - float(loss32)) / abs(float(loss32)),
+           "grad_norm": gn, "grad_norm_f32": gn32,
+           "grad_norm_err": abs(gn - gn32) / gn32,
+           "min_cosine": cos[worst], "min_cosine_param": worst,
+           "params_below_cosine": sum(c < TRAIN_COSINE for c in cos.values()),
+           "grads_held": grads_held}
+    del grads, grads32
+    what = f"16 {cfg.name}: bf16 first step vs float32"
+    require(math.isfinite(out["loss"]) and math.isfinite(gn),
+            f"{what}: loss or gradient not finite")
+    require(out["loss_err"] <= TRAIN_LOSS_TOL,
+            f"{what}: loss {out['loss']} vs {out['loss_f32']}, relative "
+            f"error {out['loss_err']} > {TRAIN_LOSS_TOL}")
+    if grads_held:
+        require(out["grad_norm_err"] <= TRAIN_GNORM_TOL,
+                f"{what}: grad norm {gn} vs {gn32} > {TRAIN_GNORM_TOL}")
+        require(out["min_cosine"] >= TRAIN_COSINE,
+                f"{what}: gradient cosine of {worst} {out['min_cosine']} < "
+                f"{TRAIN_COSINE}")
+    return out
+
+
+def grad_blocks(torch, model, model32, params, batch) -> dict:
+    """16d block by block, backward: the float32 model's loss on
+    ``batch`` is taken apart at each block's input (``Model.blocks``);
+    from the last block down, each bfloat16 block is fed the float32
+    stream's input to it (rounded to bfloat16) and the float32 backward's
+    cotangent of its output (rounded likewise; a MoE block's aux loss gets
+    its float32 weight), and its gradients are held against the float32
+    block's on the same input and cotangent: every parameter's gradient
+    cosine at least ``TRAIN_BLOCK_COSINE`` and the input cotangent's
+    relative L2 error at most ``TRAIN_BLOCK_DX``, as 15a holds each block's
+    forward.  Runs with TF32 off and returns the worst of each."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import chunked_xent, rmsnorm
+
+    cfg32, dt = model32.cfg, model.cfg.activation_dtype
+    tokens = batch["tokens"]
+    named = list(params.named_parameters())
+    ps = [p for _, p in named]
+    aux_ct = 0.01 / max(1, cfg32.n_layers) if cfg32.family == "moe" else None
+    out = {"blocks": 0, "min_cosine": 1.0, "min_cosine_at": None,
+           "dx_err": 0.0, "dx_err_block": -1, "params_held": 0}
+    for p in ps:
+        p.requires_grad_(True)
+    try:
+        with no_tf32(torch), torch.enable_grad():
+            x = transformer._embed(params, cfg32, tokens).detach()
+            ins, outs = [], []
+            for b32 in model32.blocks(params, tokens):
+                ins.append(x.requires_grad_(True))
+                outs.append(b32(x))
+                x = (outs[-1][0] if aux_ct else outs[-1]).detach()
+            x.requires_grad_(True)
+            head = chunked_xent(rmsnorm(params.ln_f, x), params.embed,
+                                batch["labels"])
+            dy = torch.autograd.grad(head, x)[0]
+            del head
+            blocks16 = model.blocks(params, tokens)
+
+            def vjp(y, x_in, ct):
+                """(d x_in, d every parameter) of ``y``'s stream under
+                cotangent ``ct`` (and of a MoE block's aux loss)."""
+                ys, cts = ([y[0]], [ct]) if aux_ct else ([y], [ct])
+                if aux_ct and y[1].requires_grad:
+                    ys.append(y[1])
+                    cts.append(torch.full_like(y[1], aux_ct))
+                return torch.autograd.grad(ys, [x_in] + ps, cts,
+                                           allow_unused=True)
+
+            for i in reversed(range(len(ins))):
+                g32 = vjp(outs[i], ins[i], dy)
+                outs[i] = None
+                x16 = ins[i].detach().to(dt).requires_grad_(True)
+                g16 = vjp(blocks16[i](x16), x16, dy.to(dt))
+                err = float((g16[0].float() - g32[0]).norm()
+                            / g32[0].norm().clamp_min(1e-30))
+                if err > out["dx_err"]:
+                    out["dx_err"], out["dx_err_block"] = err, i
+                require(err <= TRAIN_BLOCK_DX,
+                        f"16d {cfg32.name} block {i}: input cotangent "
+                        f"error {err} > {TRAIN_BLOCK_DX}")
+                for (n, _), a, b in zip(named, g16[1:], g32[1:]):
+                    if b is None:
+                        continue
+                    cos = float(torch.sum(a.float() * b) / (
+                        a.float().norm() * b.norm()).clamp_min(1e-30))
+                    out["params_held"] += 1
+                    if cos < out["min_cosine"]:
+                        out["min_cosine"] = cos
+                        out["min_cosine_at"] = f"block {i} {n}"
+                    require(cos >= TRAIN_BLOCK_COSINE,
+                            f"16d {cfg32.name} block {i}: gradient cosine "
+                            f"of {n} {cos} < {TRAIN_BLOCK_COSINE}")
+                dy = g32[0]
+                out["blocks"] += 1
+    finally:
+        for p in ps:
+            p.requires_grad_(False)
+    return out
+
+
+def timed_steps(torch, step_fn, params, state, cfg, steps, device):
+    """``step_fn`` on ``steps``' batches, each timed with CUDA events and
+    ended by the loss's ``.item()``; returns (params, state, losses, ms)."""
+    losses, ms = [], []
+    for i in steps:
+        batch = train_batch(torch, cfg, i, device)
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, metrics = step_fn(params, state, batch)
+        end.record()
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return params, state, losses, ms
+
+
+def train_bound_ms(cfg, n_params: int) -> dict:
+    """16c's bound: the step's products (6 N per token, plus causal
+    attention's score and value products, forward and backward) at the
+    dense bf16 peak, plus AdamW's bytes (p, g, m, v read and p, m, v
+    written, float32) at the memory rate."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 3 * 2 * TRAIN_BATCH * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.hd \
+        * cfg.n_layers
+    flops = 6 * n_params * tokens + attn
+    adamw_bytes = 7 * 4 * n_params
+    return {"flops": flops, "adamw_bytes": adamw_bytes,
+            "compute_ms": flops / BF16_OPS_PER_S * 1e3,
+            "adamw_ms": adamw_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": (flops / BF16_OPS_PER_S
+                         + adamw_bytes / HBM_BYTES_PER_S) * 1e3}
+
+
+def micro_hold(torch, model, params, batch) -> float:
+    """One float32 train step at ``microbatch`` 1 and 2 (lr 0, no decay,
+    no clip: m after it is (1 - b1) g): the largest relative L2 error of a
+    parameter's m."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step
+
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"),
+                          device=model.device)
+    opt = adamw.AdamWConfig(lr=0.0, weight_decay=0.0, grad_clip=0.0)
+    ms = []
+    with no_tf32(torch):
+        for micro in (1, 2):
+            fn, _ = build_train_step(model32, opt_cfg=opt, microbatch=micro)
+            _, state, _ = fn(params, adamw.init(opt, params), batch)
+            ms.append(state.m)
+            del state
+    return max(float((ms[1][n] - m).norm() / m.norm().clamp_min(1e-30))
+               for n, m in ms[0].items())
+
+
+def run_training_16a(torch, report) -> dict:
+    """16a and 16c on ``TRAIN_ARCH`` unreduced."""
+    import gc
+
+    from repro_torch import tuning
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    out = report["16a"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                           "remat": tuning.get("remat"),
+                           "xent_chunk": tuning.get("xent_chunk")}
+    require((out["remat"], out["xent_chunk"]) == ("full", 256),
+            f"16a: knobs {out['remat']}, {out['xent_chunk']}")
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = train_batch(torch, cfg, 0, model.device)
+    torch.cuda.reset_peak_memory_stats()
+    out["hold"] = hold_first_step(torch, model, params, batch, True)
+    out["micro_err"] = micro_hold(torch, model, params, batch)
+    require(out["micro_err"] <= TRAIN_MICRO_TOL,
+            f"16a: microbatch 2 vs 1 m error {out['micro_err']} > "
+            f"{TRAIN_MICRO_TOL}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    h = out["hold"]
+    print(f"phase 16a {cfg.name}: {cfg.n_layers} layers, {n_params} "
+          f"parameters, fp32 weights, {cfg.dtype} activations, remat "
+          f"{out['remat']}, xent_chunk {out['xent_chunk']}, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}; first step bf16 vs float32 (TF32 "
+          f"off): loss {h['loss']:.6f} vs {h['loss_f32']:.6f} (relative "
+          f"{h['loss_err']:.2e}, tolerance {TRAIN_LOSS_TOL}), grad norm "
+          f"{h['grad_norm']:.5f} vs {h['grad_norm_f32']:.5f} (relative "
+          f"{h['grad_norm_err']:.2e}, tolerance {TRAIN_GNORM_TOL}), least "
+          f"gradient cosine {h['min_cosine']:.5f} ({h['min_cosine_param']}, "
+          f"bound {TRAIN_COSINE}); microbatch 2 vs 1 (float32) m relative "
+          f"error {out['micro_err']:.2e} (tolerance {TRAIN_MICRO_TOL})")
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    step_fn, _ = build_train_step(model, opt_cfg=opt)
+    state = adamw.init(opt, params)
+    params, state, losses, ms = timed_steps(
+        torch, step_fn, params, state, cfg, range(TRAIN_STEPS), model.device)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["state_bytes"] = sum(t.numel() * t.element_size() for t in
+                             list(params.parameters())
+                             + list(state.m.values()) + list(state.v.values()))
+    out["losses"], out["step_ms"] = losses, ms
+    require(all(math.isfinite(x) for x in losses), f"16a: losses {losses}")
+    require(np.mean(losses[-2:]) < losses[0],
+            f"16a: the last two losses {losses[-2:]} do not fall below the "
+            f"first {losses[0]}")
+    print(f"phase 16a {cfg.name}: {TRAIN_STEPS} AdamW steps "
+          f"({TRAIN_OPT}), losses {[round(x, 4) for x in losses]}; params, "
+          f"m and v {out['state_bytes']} bytes; peak device memory "
+          f"{out['peak_bytes']} bytes; {time.perf_counter() - t0:.1f} s")
+
+    # 16c: step time beside its bound, one profiled step
+    timed = sorted(ms[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED])
+    step_ms = timed[len(timed) // 2]
+    bound = train_bound_ms(cfg, n_params)
+    batch = train_batch(torch, cfg, TRAIN_STEPS, model.device)
+    prof = profile_breakdown(torch, lambda: step_fn(params, state, batch),
+                             groups=("nvjet", "bfloat16_copy", "elementwise"))
+    busy = prof["device_busy_ms"] or 0.0
+    c = out["16c"] = {
+        "card": nvidia_smi(), "step_ms": step_ms, **bound,
+        "bound_share": bound["bound_ms"] / step_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+        "device_calls": prof["device_calls"], "device_busy_ms": busy,
+        "device_busy_share": busy / step_ms,
+        "profiled_wall_s": prof["wall_s"], "top": prof["top"][:8],
+        "kernel_ms": prof["kernel_ms"]}
+    print(f"phase 16c {cfg.name} on {c['card']}: train step (B "
+          f"{TRAIN_BATCH} x S {TRAIN_SEQ}, remat full) {step_ms:.2f} ms "
+          f"(median of {TRAIN_TIMED} after {TRAIN_WARMUP} warm-ups; steps "
+          f"{[round(x, 1) for x in ms]}) against a {bound['bound_ms']:.2f} ms "
+          f"bound ({bound['flops'] / 1e12:.2f} TFLOP at the dense bf16 peak "
+          f"{bound['compute_ms']:.2f} ms + AdamW's {bound['adamw_bytes']} "
+          f"bytes {bound['adamw_ms']:.2f} ms; share {c['bound_share']:.3f});"
+          f" {c['tokens_per_s']:.0f} tokens/s; profiled step: "
+          f"{c['device_calls']} device calls, device busy {busy:.2f} ms "
+          f"(share of the timed step {c['device_busy_share']:.3f}; the "
+          f"profiled step's wall {prof['wall_s'] * 1e3:.2f} ms)")
+    for row in prof["top"][:8]:
+        print(f"  {row['ms']:10.3f} ms  {row['calls']:6d}x  {row['name'][:90]}")
+    del params, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_training_16b(torch, report) -> dict:
+    """16b: ``train.loop.train`` at ``smoke_config(TRAIN_ARCH)`` on the
+    card, straight against checkpointed and resumed."""
+    import shutil
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint, loop
+
+    cfg = smoke_config(get_config(TRAIN_ARCH))
+    model = build_model(cfg)
+    data = SyntheticLMData(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    root = ROOT / "build" / "ckpt16b"
+    shutil.rmtree(root, ignore_errors=True)
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    mid, end = TRAIN_RESUME
+    quiet = dict(opt_cfg=opt, log_fn=lambda *_: None)
+
+    def run(name, steps, every):
+        return loop.train(model, data, loop.LoopConfig(
+            steps=steps, ckpt_dir=str(root / name), ckpt_every=every,
+            log_every=10 ** 6), **quiet)["history"]
+
+    straight = run("straight", end, 10 ** 6)
+    first = run("split", mid, mid)
+    second = run("split", end, 10 ** 6)
+    got = [h["loss"] for h in first + second]
+    want = [h["loss"] for h in straight]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    require([h["step"] for h in second] == list(range(mid, end)),
+            "16b: the resumed run did not start at the checkpoint")
+    require(checkpoint.latest_step(str(root / "split")) == end,
+            "16b: no final checkpoint")
+    require(err <= TRAIN_RESUME_TOL,
+            f"16b: resumed losses {got} vs straight {want}: {err}")
+    ckpt_bytes = sum(f.stat().st_size for f in (root / "split").rglob("*")
+                     if f.is_file())
+    shutil.rmtree(root, ignore_errors=True)
+    out = report["16b"] = {"arch": cfg.name, "losses": want,
+                           "resumed_losses": got, "max_rel_err": err,
+                           "exact": got == want, "ckpt_bytes": ckpt_bytes}
+    print(f"phase 16b {cfg.name} (smoke config, {cfg.dtype}) through "
+          f"train.loop.train: {end} steps straight against {mid} + "
+          f"checkpoint + resume to {end}: largest relative loss difference "
+          f"{err:.2e} (tolerance {TRAIN_RESUME_TOL}; bit-identical: "
+          f"{out['exact']}); a checkpoint {ckpt_bytes} bytes on disk")
+    return out
+
+
+def moe_train_config(cfg):
+    """deepseek at its widths with its dense first block(s) and the most
+    MoE blocks whose parameters at 16 bytes each fit ``TRAIN_MOE_BYTES``."""
+    import dataclasses
+
+    n = cfg.first_dense_layers + 1
+    while n < cfg.n_layers and 16 * dataclasses.replace(
+            cfg, n_layers=n + 1).param_count() <= TRAIN_MOE_BYTES:
+        n += 1
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def run_training_16d(torch, cfg, report) -> dict:
+    """16d on one architecture: a held first step (outside
+    ``TRAIN_FAM_HELD`` its loss end to end and its gradients block by
+    block, ``grad_blocks``), then ``TRAIN_FAM_STEPS`` AdamW steps."""
+    import dataclasses
+    import gc
+
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = train_batch(torch, cfg, 0, model.device)
+    hold = hold_first_step(torch, model, params, batch,
+                           cfg.name in TRAIN_FAM_HELD)
+    blocks = None
+    if cfg.name not in TRAIN_FAM_HELD:
+        blocks = grad_blocks(torch, model, build_model(dataclasses.replace(
+            cfg, dtype="float32"), device=model.device), params, batch)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    step_fn, _ = build_train_step(model, opt_cfg=opt)
+    state = adamw.init(opt, params)
+    params, state, losses, ms = timed_steps(
+        torch, step_fn, params, state, cfg, range(TRAIN_FAM_STEPS),
+        model.device)
+    require(all(math.isfinite(x) for x in losses),
+            f"16d {cfg.name}: losses {losses}")
+    out = {"layers": cfg.n_layers, "params": n_params, "hold": hold,
+           "grad_blocks": blocks, "seq": train_seq(cfg),
+           "losses": losses, "step_ms": ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "s": time.perf_counter() - t0}
+    held = "loss, grad norm and cosines held" if hold["grads_held"] else \
+        "loss held, gradients reported"
+    print(f"phase 16d {cfg.name}: {cfg.n_layers} layers, {n_params} "
+          f"parameters, batch {TRAIN_BATCH} x {train_seq(cfg)}; first step bf16 vs float32 ({held}): loss "
+          f"{hold['loss']:.5f} vs {hold['loss_f32']:.5f} (relative "
+          f"{hold['loss_err']:.2e}), grad norm relative "
+          f"{hold['grad_norm_err']:.2e}, least cosine "
+          f"{hold['min_cosine']:.5f} ({hold['min_cosine_param']}; "
+          f"{hold['params_below_cosine']} below {TRAIN_COSINE}); "
+          f"{TRAIN_FAM_STEPS} steps, losses {[round(x, 4) for x in losses]}, "
+          f"ms {[round(x, 1) for x in ms]}; peak device memory "
+          f"{out['peak_bytes']} bytes; {out['s']:.1f} s")
+    if blocks:
+        print(f"phase 16d {cfg.name}: each bf16 block's backward fed the "
+              f"float32 stream and cotangent, {blocks['blocks']} blocks: "
+              f"least gradient cosine {blocks['min_cosine']:.5f} "
+              f"({blocks['min_cosine_at']}; bound {TRAIN_BLOCK_COSINE}, "
+              f"{blocks['params_held']} gradients), largest input "
+              f"cotangent error {blocks['dx_err']:.2e} (block "
+              f"{blocks['dx_err_block']}; bound {TRAIN_BLOCK_DX})")
+    del params, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_training(torch, report) -> dict:
+    """Phase 16: LM training through the port's ``train`` package on one
+    card: 16a ``TRAIN_ARCH`` unreduced (a bf16 first step held against
+    float32, ``TRAIN_STEPS`` AdamW steps that must lower the loss,
+    microbatch 2 against 1), 16b checkpoint and resume at the smoke config,
+    16c the step beside its bound with a profiled step, 16d the other
+    families' first step and ``TRAIN_FAM_STEPS`` steps each (deepseek cut
+    to ``moe_train_config``).  Returns the three kernels' launches over
+    the phase (none is on this path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda, "pair_count": count_block_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    out = report["lm_training"] = {"s": {}}
+    t = time.perf_counter()
+    run_training_16a(torch, out)
+    out["s"]["16a+c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_training_16b(torch, out)
+    out["s"]["16b"] = time.perf_counter() - t
+    fam = out["16d"] = {}
+    for name in FAM_ARCHS:
+        t = time.perf_counter()
+        cfg = get_config(name)
+        if cfg.family == "moe":
+            cfg = moe_train_config(cfg)
+            print(f"phase 16d {name}: {cfg.n_layers} of "
+                  f"{get_config(name).n_layers} layers ({cfg.first_dense_layers}"
+                  f" dense, {cfg.n_experts} experts, top "
+                  f"{cfg.experts_per_token}): the most whose 16 bytes a "
+                  f"parameter fit {TRAIN_MOE_BYTES:.0f} bytes")
+        fam[name] = run_training_16d(torch, cfg, out)
+        out["s"][f"16d {name}"] = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+    require(sum(launches.values()) == 0,
+            f"16: the set-intersection kernels launched {launches}")
+    out["launches"] = launches
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -4036,6 +4607,10 @@ def main(argv=None) -> int:
     # phase 15: the moe, ssm_hybrid, xlstm and encdec families unreduced
     fam_launches = run_lm_families(torch, report)
     t_phase = phase_done("15 LM families", t_phase)
+
+    # phase 16: LM training at qwen3-1.7b's full width, then the families
+    train_launches = run_lm_training(torch, report)
+    t_phase = phase_done("16 LM training", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -4090,7 +4665,8 @@ def main(argv=None) -> int:
     print(f"kernels by path: {json.dumps(paths)}; 13a host query_batch: "
           f"{json.dumps(host_launches)}; 14 LM serving: "
           f"{json.dumps(lm_launches)}; 15 LM families: "
-          f"{json.dumps(fam_launches)}")
+          f"{json.dumps(fam_launches)}; 16 LM training: "
+          f"{json.dumps(train_launches)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

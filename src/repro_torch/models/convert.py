@@ -9,11 +9,13 @@ parameter names are that tree's paths with the stack indices after the
 list's name: ``layers.3.attn.wq``, ``moe_layers.0.moe.w_up``, and
 ``mlstm.2.1.wq`` for xLSTM's mLSTM blocks, stacked on two axes (rounds,
 blocks per round).  Both directions take and give numpy arrays, so
-neither package imports the other.
+neither package imports the other.  ``named_to_numpy`` / ``load_named_``
+do the same for any tensors keyed by those names (AdamW's ``m`` and ``v``,
+gradients), and ``stacked_rank`` gives a parameter's rank in the JAX tree.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -44,12 +46,22 @@ def _jax_path(name: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
             tuple(int(i) for i in parts[1:1 + n]))
 
 
-def _stack_shape(params: torch.nn.Module, root: str) -> Tuple[int, ...]:
-    """The leading axes the JAX tree stacks ``root``'s layers on."""
-    lst = getattr(params, root)
-    if _STACKS[root] == 1:
-        return (len(lst),)
-    return (len(lst), len(lst[0]))
+def stacked_rank(name: str, tensor: torch.Tensor) -> int:
+    """The rank of parameter ``name``'s leaf in the JAX tree: the port's
+    rank plus the axes its layer list is stacked on."""
+    return tensor.ndim + len(_jax_path(name)[1])
+
+
+def _stack_shapes(names: Iterable[str]) -> Dict[str, Tuple[int, ...]]:
+    """The leading axes the JAX tree stacks each layer list on, from the
+    indices in the port's names."""
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    for name in names:
+        path, idx = _jax_path(name)
+        if idx:
+            old = shapes.get(path[0], (0,) * len(idx))
+            shapes[path[0]] = tuple(max(a, i + 1) for a, i in zip(old, idx))
+    return shapes
 
 
 def _leaves(tree: Tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, ...]]:
@@ -68,43 +80,58 @@ def _get(tree: Tree, path: Tuple[str, ...]):
     return tree
 
 
+def load_named_(named: Iterable[Tuple[str, torch.Tensor]],
+                tree: Tree) -> None:
+    """Copy the JAX tree's leaves (numpy arrays, layer lists stacked on
+    leading axes) into the tensors ``named`` (port names, row-major over
+    each list, as ``named_parameters`` walks them), in place.  A missing,
+    extra or misshapen leaf raises ``KeyError`` / ``ValueError``, naming
+    its path."""
+    named = list(named)
+    stacks = _stack_shapes(n for n, _ in named)
+    seen = set()
+    with torch.no_grad():
+        for name, p in named:
+            path, idx = _jax_path(name)
+            seen.add(path)
+            arr = np.asarray(_get(tree, path))
+            if idx:
+                stack = stacks[path[0]]
+                if tuple(arr.shape[:len(stack)]) != stack:
+                    raise ValueError(
+                        f"parameter {'/'.join(path)}: shape {arr.shape}, "
+                        f"expected {stack} layers on the leading axes")
+                arr = arr[idx]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"parameter {'/'.join(path)}: shape {tuple(arr.shape)}, "
+                    f"expected {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    extra = sorted("/".join(x) for x in set(_leaves(tree)) - seen)
+    if extra:
+        raise ValueError(f"parameters the port does not have: {extra}")
+
+
 def params_from_jax(cfg: ArchConfig, tree: Tree,
                     device: Device = "cuda") -> torch.nn.Module:
     """The JAX package's parameter tree (numpy arrays, layer lists stacked
     on leading axes) -> the port's parameter module for ``cfg.family`` on
     ``device``.  A missing, extra or misshapen parameter raises, naming its
     path."""
-    dev = resolve_device(device)
-    params = PARAMS[cfg.family](cfg, dev)
-    seen = set()
-    for name, p in params.named_parameters():
-        path, idx = _jax_path(name)
-        seen.add(path)
-        arr = np.asarray(_get(tree, path))
-        if idx:
-            stack = _stack_shape(params, path[0])
-            if tuple(arr.shape[:len(stack)]) != stack:
-                raise ValueError(
-                    f"parameter {'/'.join(path)}: shape {arr.shape}, "
-                    f"expected {stack} layers on the leading axes")
-            arr = arr[idx]
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(
-                f"parameter {'/'.join(path)}: shape {tuple(arr.shape)}, "
-                f"expected {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-    extra = sorted("/".join(x) for x in set(_leaves(tree)) - seen)
-    if extra:
-        raise ValueError(f"parameters the port does not have: {extra}")
+    params = PARAMS[cfg.family](cfg, resolve_device(device))
+    load_named_(params.named_parameters(), tree)
     return params
 
 
-def params_to_numpy(params: torch.nn.Module) -> Tree:
-    """The port's parameters -> the JAX package's tree layout (float32
-    numpy arrays, layer lists stacked on leading axes)."""
+def named_to_numpy(named: Iterable[Tuple[str, torch.Tensor]]) -> Tree:
+    """Tensors keyed by port names (row-major over each layer list) -> the
+    JAX package's tree layout (float32 numpy arrays, layer lists stacked on
+    leading axes)."""
+    named = list(named)
+    shapes = _stack_shapes(n for n, _ in named)
     tree: Tree = {}
     stacks: Dict[Tuple[str, ...], list] = {}
-    for name, p in params.named_parameters():
+    for name, p in named:
         path, idx = _jax_path(name)
         arr = p.detach().float().cpu().numpy()
         if idx:
@@ -112,10 +139,15 @@ def params_to_numpy(params: torch.nn.Module) -> Tree:
         else:
             _put(tree, path, arr)
     for path, arrs in stacks.items():
-        # named_parameters walks the stack indices in row-major order
-        stack = _stack_shape(params, path[0])
-        _put(tree, path, np.stack(arrs).reshape(stack + arrs[0].shape))
+        _put(tree, path, np.stack(arrs).reshape(shapes[path[0]]
+                                                + arrs[0].shape))
     return tree
+
+
+def params_to_numpy(params: torch.nn.Module) -> Tree:
+    """The port's parameters -> the JAX package's tree layout (float32
+    numpy arrays, layer lists stacked on leading axes)."""
+    return named_to_numpy(params.named_parameters())
 
 
 def _put(tree: Tree, path: Tuple[str, ...], value) -> None:

@@ -15,7 +15,9 @@ facade's ``decode`` never calls it, so a ``DecodeServer`` decodes against
 a zero cross-KV (the cross branch adds a uniform average of zeros, 0); the
 port keeps this.
 
-Not here: ``loss_fn`` (training).
+``encode`` and ``decode_train`` run each layer under
+``tuning.remat_wrap``, as JAX's scan bodies.  ``loss_fn`` runs both and
+``chunked_xent`` against the decoder's embedding.
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from .. import tuning
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
 from .layers import (
     MLP, Attention, AttnSpec, RMSNorm, _param, _repeat_kv, attention,
-    attention_decode, dense_init_, mlp, rmsnorm,
+    attention_decode, chunked_xent, dense_init_, mlp, rmsnorm,
 )
 from .transformer import attn_spec, logits_fn
 
@@ -108,15 +111,21 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def encode(params: EncDecParams, cfg: ArchConfig,
            frames: torch.Tensor) -> torch.Tensor:
-    """frames: (B, T_enc, frontend_dim) stub embeddings -> (B, T_enc, d)."""
+    """frames: (B, T_enc, frontend_dim) stub embeddings -> (B, T_enc, d);
+    each layer under ``tuning.remat_wrap``."""
     dt = cfg.activation_dtype
     x = frames.to(dt) @ params.frontend_proj.to(dt)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     spec = _cross_spec(cfg)
-    for lp in params.enc_layers:
+
+    def body(x, lp):
         x = x + attention(lp.attn, spec, rmsnorm(lp.ln1, x), positions)
-        x = x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+        return x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+
+    body = tuning.remat_wrap(body)
+    for lp in params.enc_layers:
+        x = body(x, lp)
     return rmsnorm(params.enc_ln_f, x)
 
 
@@ -142,12 +151,17 @@ def decode_train(params: EncDecParams, cfg: ArchConfig, tokens: torch.Tensor,
     positions = _positions(b, s, x.device)
     self_spec = attn_spec(cfg)
     x_spec = _cross_spec(cfg)
-    for lp in params.dec_layers:
+
+    def body(x, lp, enc_out):
         x = x + attention(lp.attn, self_spec, rmsnorm(lp.ln1, x), positions)
         kv = _cross_kv(lp, cfg, enc_out)
         x = x + attention(lp.xattn, x_spec, rmsnorm(lp.ln_x, x), positions,
                           cross_kv=kv)
-        x = x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+        return x + mlp(lp.mlp, rmsnorm(lp.ln2, x))
+
+    body = tuning.remat_wrap(body)
+    for lp in params.dec_layers:
+        x = body(x, lp, enc_out)
     return rmsnorm(params.ln_f, x)
 
 
@@ -156,6 +170,13 @@ def hidden(params: EncDecParams, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     ``tokens``, attending to ``encode`` of its ``frames``."""
     return decode_train(params, cfg, batch["tokens"],
                         encode(params, cfg, batch["frames"]))
+
+
+def loss_fn(params: EncDecParams, cfg: ArchConfig,
+            batch: dict) -> torch.Tensor:
+    enc_out = encode(params, cfg, batch["frames"])
+    hidden = decode_train(params, cfg, batch["tokens"], enc_out)
+    return chunked_xent(hidden, params.embed, batch["labels"])
 
 
 # ------------------------------------------------------------------ serving

@@ -1,11 +1,11 @@
-"""Shared neural building blocks of the dense family (serving part).
+"""Shared neural building blocks of every architecture in the pool.
 
 The port's copy of the JAX package's ``models/layers.py``.  Parameters sit
 in small ``nn.Module``s (``RMSNorm``, ``Attention``, ``MLP``) whose
 attribute names are the JAX parameter tree's keys; the computations are
 plain functions on tensors with the JAX names (``rmsnorm``, ``rope``,
-``attention``, ``attention_decode``, ``mlp``), taking the module where JAX
-takes the parameter dict.
+``attention``, ``attention_decode``, ``mlp``, ``chunked_xent``), taking
+the module where JAX takes the parameter dict.
 
 Conventions, as in JAX:
   * params are created in ``param_dtype`` (fp32 by default) and cast to the
@@ -15,21 +15,22 @@ Conventions, as in JAX:
   * decode paths take a KV cache laid out (B, S_max, n_kv, head_dim) and a
     scalar position.  The cache is written in place (JAX returns a new
     one); the functions return it all the same.
-  * parameters do not require grad: this is the serving path (training is
-    not ported yet).
+  * parameters are made with ``requires_grad=False``, so serving builds no
+    autograd graph; the train step (``train/step.py``) turns it on for its
+    backward pass and off again.
 
-Not here: the mesh paths (``ctx.constrain``, the flash-decode shard map)
-and training (``chunked_xent``, the bf16 cotangent cast).
+Not here: the mesh paths (``ctx.constrain``, the flash-decode shard map).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import tuning
 
@@ -309,3 +310,78 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(u, approximate="tanh")   # jax.nn.gelu's default
     return h @ w_down
+
+
+def run_groups(x: torch.Tensor, blocks: List[Callable],
+               size: int) -> torch.Tensor:
+    """``blocks`` (functions of the residual stream) applied in order,
+    ``size`` at a time as one unit, each unit under
+    ``tuning.remat_wrap``: where JAX's scan body holds several blocks, the
+    port checkpoints them together."""
+    for i in range(0, len(blocks), size):
+        def unit(x, group=blocks[i:i + size]):
+            for block in group:
+                x = block(x)
+            return x
+        x = tuning.remat_wrap(unit)(x)
+    return x
+
+
+# --------------------------------------------------------------------------
+# sequence-chunked softmax cross entropy
+# --------------------------------------------------------------------------
+
+
+class _CtCastBf16(torch.autograd.Function):
+    """Identity whose incoming cotangent is cast to bf16 — pins the whole
+    backward residual chain to bf16 instead of the f32 the loss emits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(torch.bfloat16)
+
+
+def _ct_cast_bf16(x: torch.Tensor) -> torch.Tensor:
+    return _CtCastBf16.apply(x)
+
+
+def _xent_chunk_sum(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                    z_loss: float) -> torch.Tensor:
+    """One chunk's summed ``nll + z_loss * lse**2``, float32: h (B, c, d),
+    emb (V, d), labels (B, c)."""
+    logits = (h @ emb.to(h.dtype).T).float()                  # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    true = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    return torch.sum(lse - true + z_loss * lse * lse)
+
+
+def chunked_xent(
+    hidden: torch.Tensor,     # (B, S, d)
+    emb: torch.Tensor,        # (V, d) — tied output embedding
+    labels: torch.Tensor,     # (B, S) int
+    z_loss: float = 1e-4,
+) -> torch.Tensor:
+    """Mean next-token cross entropy without materializing (B, S, V).
+
+    Loops over sequence chunks of the ``xent_chunk`` knob (one chunk of S
+    where it does not divide S); each chunk runs under a checkpoint, so its (B, c, V)
+    logits live only transiently, forward and backward.  The logits are
+    ``h @ emb.T`` in the activation dtype, then float32 (in bf16 the
+    product is rounded before the cast, as in JAX).  The small z-loss
+    regularizes the softmax normalizer.  Chunk sums accumulate in float32,
+    in order, and the total is divided by B * S."""
+    if tuning.get("grad_bf16") and hidden.dtype == torch.bfloat16:
+        hidden = _ct_cast_bf16(hidden)
+    b, s, _ = hidden.shape
+    c, n = _chunks(s, tuning.get("xent_chunk"))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        part = checkpoint(_xent_chunk_sum, hidden[:, i * c:(i + 1) * c], emb,
+                          labels[:, i * c:(i + 1) * c], z_loss,
+                          use_reentrant=False)
+        total = total + part
+    return total / (b * s)

@@ -1,8 +1,9 @@
 """Unified model facade: one object per architecture family.
 
-The port's copy of the JAX package's ``models/model.py``, serving part.
+The port's copy of the JAX package's ``models/model.py``.
 ``build_model(cfg, device="cuda")`` returns a :class:`Model` exposing:
   * ``init(generator) -> params``  (a ``torch.Generator`` on the device)
+  * ``loss(params, batch) -> scalar``  (training objective, float32)
   * ``prefill(params, batch) -> last-token logits``  (inference prefill)
   * ``init_cache(batch, max_seq) -> cache``
   * ``decode(params, cache, tokens, pos) -> (logits, cache)``
@@ -18,12 +19,14 @@ also take ``routes=`` (a list each MoE layer call appends its
 
 Batches are dicts of tensors on the model's device (``tokens``;
 ``patch_embeds`` for the patch frontend; ``frames`` (B, T_enc,
-frontend_dim) for the encoder-decoder family).  Every family is ported:
+frontend_dim) for the encoder-decoder family; ``labels`` for ``loss``).
+``prefill`` and ``decode`` run under ``torch.no_grad()``: serving builds
+no autograd graph.  Every family is ported:
 ``dense`` and ``vlm`` (``transformer``), ``moe``, ``ssm_hybrid``
 (``ssm``), ``xlstm`` and ``encdec``.  As in the JAX package, ``decode``
 of an encoder-decoder model attends to the cache's cross-attention KV,
-which only ``encdec.prefill_cross`` fills (zeros otherwise).  ``loss``
-and ``batch_spec`` come with training and the dry-run tools.
+which only ``encdec.prefill_cross`` fills (zeros otherwise).
+``batch_spec`` comes with the dry-run tools.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ class Model:
     cfg: ArchConfig
     device: torch.device
     init: Callable
+    loss: Callable
     prefill: Callable
     init_cache: Callable
     decode: Callable
@@ -64,6 +68,7 @@ def build_model(cfg: ArchConfig, device: Device = "cuda") -> Model:
     device = resolve_device(device)
     module = _MODULES[cfg.family]
 
+    @torch.no_grad()
     def prefill(params, batch):
         hidden = module.hidden(params, cfg, batch)
         return transformer.logits_fn(params, cfg, hidden[:, -1])
@@ -79,10 +84,11 @@ def build_model(cfg: ArchConfig, device: Device = "cuda") -> Model:
         cfg=cfg,
         device=device,
         init=lambda gen: module.init_params(gen, cfg, device),
+        loss=bind("loss_fn"),
         prefill=prefill,
         init_cache=lambda b, s, dtype=None: module.init_cache(
             cfg, b, s, dtype, device=device),
-        decode=bind("decode_step"),
+        decode=torch.no_grad()(bind("decode_step")),
         hidden=bind("hidden"),
         blocks=bind("blocks"),
         decode_blocks=bind("decode_blocks"),

@@ -21,9 +21,12 @@ zeros and the token kept at rank C - 1 loses that expert's output.  The
 port writes only the pairs it keeps (``dispatch``), which leaves that slot
 zero: the same buffer with no duplicate writes.
 
-Not here: ``loss_fn`` (training) and ``_moe_ffn_shardmap`` (the
-expert-parallel path over a mesh, ROADMAP item 11d, the only reader of the
-``capacity_factor`` tuning knob).
+The gradient agrees too: JAX's scatter passes no cotangent to an
+overwritten update, and the port never writes that pair.
+
+Not here: ``_moe_ffn_shardmap`` (the expert-parallel path over a mesh,
+ROADMAP item 11d, the only reader of the ``capacity_factor`` tuning
+knob).
 """
 from __future__ import annotations
 
@@ -34,11 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tuning
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
 from .layers import (
-    MLP, Attention, RMSNorm, _param, attention_decode, dense_init_, mlp,
-    rmsnorm,
+    MLP, Attention, RMSNorm, _param, attention_decode, chunked_xent,
+    dense_init_, mlp, rmsnorm,
 )
 from .transformer import (
     Cache, Layer, _attention_dyn, _embed, attn_spec, logits_fn,
@@ -266,13 +270,29 @@ def blocks(params: MoEParams, cfg: ArchConfig, tokens: torch.Tensor,
 def forward(params: MoEParams, cfg: ArchConfig, tokens: torch.Tensor,
             routes: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token ids -> (final hidden states (B, S, d), mean aux loss)."""
+    """Token ids -> (final hidden states (B, S, d), mean aux loss).  Each
+    block runs under ``tuning.remat_wrap``; ``routes``
+    gets one ``Route`` per MoE layer all the same (the backward pass's
+    recomputation appends to a list of its own)."""
     x = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for block in blocks(params, cfg, tokens, routes):
-        x, a = block(x)
+    fresh = None if routes is None else []
+    for block in blocks(params, cfg, tokens, fresh):
+        x, a = tuning.remat_wrap(block)(x)
         aux = aux + a
+        if fresh:
+            routes.extend(fresh)
+            fresh.clear()
     return rmsnorm(params.ln_f, x), aux / max(1, cfg.n_layers)
+
+
+def loss_fn(params: MoEParams, cfg: ArchConfig, batch: dict,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Cross entropy (``chunked_xent``, tied embedding) plus
+    ``aux_weight`` times the mean load-balance loss."""
+    hidden, aux = forward(params, cfg, batch["tokens"])
+    return chunked_xent(hidden, params.embed, batch["labels"]) \
+        + aux_weight * aux
 
 
 def hidden(params: MoEParams, cfg: ArchConfig, batch: dict,

@@ -19,7 +19,10 @@ application's keys and every application attends over those at earlier
 positions.  Prefill gives every application its own keys, so decode
 differs from prefill after position 0.  The port keeps this.
 
-Not here: ``loss_fn`` (training).
+``forward`` checkpoints (``tuning.remat_wrap``) where JAX's scan bodies do: each
+group of ``attn_every`` Mamba2 blocks with the shared block after it, or
+each Mamba2 block without one.  ``loss_fn`` is ``chunked_xent`` against
+the tied embedding.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
 from .layers import (
-    MLP, Attention, RMSNorm, _chunks, _param, attention_decode, dense_init_,
-    mlp, rmsnorm,
+    MLP, Attention, RMSNorm, _chunks, _param, attention_decode, chunked_xent,
+    dense_init_, mlp, rmsnorm, run_groups,
 )
 from .transformer import _attention_dyn, _embed, attn_spec, logits_fn
 
@@ -288,9 +291,15 @@ def forward(params: SSMParams, cfg: ArchConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Token ids -> final hidden states (B, S, d)."""
     x = _embed(params, cfg, tokens)
-    for block in blocks(params, cfg, tokens):
-        x = block(x)
+    n_outer, inner = _chunk_layout(cfg)
+    x = run_groups(x, blocks(params, cfg, tokens),
+                   inner + 1 if n_outer else 1)
     return rmsnorm(params.ln_f, x)
+
+
+def loss_fn(params: SSMParams, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    hidden = forward(params, cfg, batch["tokens"])
+    return chunked_xent(hidden, params.embed, batch["labels"])
 
 
 def hidden(params: SSMParams, cfg: ArchConfig, batch: dict) -> torch.Tensor:

@@ -10,8 +10,11 @@ part.  One implementation covers the whole dense family:
 
 Parameters are a ``DenseParams`` module whose layers sit in an
 ``nn.ModuleList``; the layer stack runs as a Python loop where JAX scans
-over parameters stacked on a leading layer axis.  Not ported yet:
-``loss_fn`` (training).
+over parameters stacked on a leading layer axis.  Each layer runs under
+``tuning.remat_wrap`` (the ``remat`` knob's activation checkpointing,
+as JAX's scan body) when gradients are on.
+``loss_fn`` is the training objective: ``chunked_xent`` of the final
+hidden states against the (tied or separate) output embedding.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
 from .layers import (
     MLP, Attention, AttnSpec, RMSNorm, _chunks, _param, _qkv, _repeat_kv,
-    attention_decode, dense_init_, mlp, rmsnorm,
+    attention_decode, chunked_xent, dense_init_, mlp, rmsnorm,
 )
 
 Cache = Dict[str, torch.Tensor]
@@ -198,13 +201,19 @@ def _attention_dyn(p: Attention, spec: AttnSpec, x, positions, window: int):
 
 def forward(params: DenseParams, cfg: ArchConfig, tokens: torch.Tensor,
             patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token ids -> final hidden states (B, S, d)."""
+    """Token ids -> final hidden states (B, S, d); each layer under
+    ``tuning.remat_wrap``."""
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, patch_embeds)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
+
+    def body(x, layer_p, win):
+        return _layer_fwd(cfg, x, layer_p, win, positions)
+
+    body = tuning.remat_wrap(body)
     for layer_p, win in zip(params.layers, layer_windows(cfg)):
-        x = _layer_fwd(cfg, x, layer_p, win, positions)
+        x = body(x, layer_p, win)
     return rmsnorm(params.ln_f, x)
 
 
@@ -218,6 +227,15 @@ def logits_fn(params: DenseParams, cfg: ArchConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     emb = getattr(params, "unembed", params.embed)
     return hidden @ emb.to(hidden.dtype).T
+
+
+def loss_fn(params: DenseParams, cfg: ArchConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["labels"]`` (plus the
+    z-loss), the training objective."""
+    hidden = forward(params, cfg, batch["tokens"], batch.get("patch_embeds"))
+    emb = getattr(params, "unembed", params.embed)
+    return chunked_xent(hidden, emb, batch["labels"])
 
 
 # ---------------------------------------------------------------- serving

@@ -15,8 +15,8 @@ mLSTM, grouped into rounds of ``m_per`` mLSTM blocks and one sLSTM.
 Blocks are pre-LN residual with internal up/down projections; no separate
 FFN.  Parameters: ``mlstm`` is a list of rounds, each a list of blocks
 (the JAX tree stacks them on two axes), ``slstm`` one block a round.
-
-Not here: ``loss_fn`` (training).
+``forward`` checkpoints (``tuning.remat_wrap``) a round at a time, as JAX's scan
+body; ``loss_fn`` is ``chunked_xent`` against the tied embedding.
 """
 from __future__ import annotations
 
@@ -30,7 +30,9 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
-from .layers import RMSNorm, _chunks, _param, dense_init_, rmsnorm
+from .layers import (
+    RMSNorm, _chunks, _param, chunked_xent, dense_init_, rmsnorm, run_groups,
+)
 from .ssm import _states_entering
 from .transformer import _embed, logits_fn
 
@@ -274,9 +276,15 @@ def forward(params: XLSTMParams, cfg: ArchConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Token ids -> final hidden states (B, S, d)."""
     x = _embed(params, cfg, tokens)
-    for block in blocks(params, cfg, tokens):
-        x = block(x)
+    x = run_groups(x, blocks(params, cfg, tokens),
+                   len(params.mlstm[0]) + hasattr(params, "slstm"))
     return rmsnorm(params.ln_f, x)
+
+
+def loss_fn(params: XLSTMParams, cfg: ArchConfig,
+            batch: dict) -> torch.Tensor:
+    hidden = forward(params, cfg, batch["tokens"])
+    return chunked_xent(hidden, params.embed, batch["labels"])
 
 
 def hidden(params: XLSTMParams, cfg: ArchConfig,

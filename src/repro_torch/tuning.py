@@ -2,36 +2,40 @@
 
 The port's copy of the JAX package's knob registry, holding the knobs that
 the port reads: ``q_chunk`` (attention query-block size),
-``scores_dtype``, ``gqa_native`` and ``act_bf16``, with the JAX package's
-defaults (the paper-faithful baseline), plus ``get``, ``overrides`` and
-``parse``.  The JAX package's other knobs are read by code the port does
-not have yet; naming one raises ``NotImplementedError`` with the ROADMAP
-item that brings it, so a setting never silently does nothing.
+``scores_dtype``, ``gqa_native`` and ``act_bf16`` (serving), and
+``xent_chunk``, ``remat`` and ``grad_bf16`` (training),
+with the JAX package's defaults (the paper-faithful baseline), plus
+``get``, ``overrides``, ``parse`` and ``remat_wrap``.  The JAX package's
+other knobs are read by code the port does not have yet; naming one raises
+``NotImplementedError`` with the ROADMAP item that brings it, so a setting
+never silently does nothing.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict
 
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 _DEFAULTS: Dict[str, Any] = {
     "q_chunk": 512,          # attention query-block size
+    "xent_chunk": 256,       # sequence chunk of the softmax-xent loop
     "scores_dtype": "f32",   # attention score accumulation dtype
+    "remat": "full",         # full | dots | none
     "gqa_native": False,     # score einsum against Kv heads (no K/V repeat)
     "act_bf16": False,       # norms/gelu: f32 statistics, bf16 application
+    "grad_bf16": False,      # cast the loss cotangent to bf16 at the xent boundary
 }
 
 # The JAX package's knobs that the port does not read yet, each with the
 # ROADMAP item that ports its reader.
 _UNPORTED: Dict[str, str] = {
-    "xent_chunk": "11c",       # chunked_xent (training)
-    "micro_tokens": "11c",     # train/step.py's microbatching
-    "remat": "11c",            # remat_wrap (training)
-    "grad_bf16": "11c",        # the loss cotangent's cast (training)
     "capacity_factor": "11d",  # parallel/: the sharded MoE dispatch
     "seq_shard_mlp": "11d",    # parallel/: sequence-parallel MLP
     "flash_decode": "11d",     # parallel/: flash decode over shards
+    "micro_tokens": "11e",     # launch/dryrun.py: auto_microbatch's target
 }
 
 
@@ -54,6 +58,48 @@ def get(name: str):
 
 def scores_dtype() -> torch.dtype:
     return torch.bfloat16 if _STATE["scores_dtype"] == "bf16" else torch.float32
+
+
+# the products ``remat="dots"`` keeps for the backward pass, as JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps every dot with no batch
+# dimension: ``mm``, ``addmm`` and ``matmul``, and ``bmm`` over a batch of
+# one (``torch.einsum``'s form of a contraction with no batch dimension,
+# such as the projections ``bsd,dhk->bshk``).  Everything else, the
+# attention's batched score and value products included, is recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.matmul.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    CP = _checkpoint.CheckpointPolicy
+    if op in _SAVED_DOTS or (op is torch.ops.aten.bmm.default
+                             and args[0].shape[0] == 1):
+        return CP.MUST_SAVE
+    return CP.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn: Callable) -> Callable:
+    """``fn`` under the ``remat`` knob's activation checkpointing:
+    ``"full"`` keeps only ``fn``'s inputs and recomputes the rest in the
+    backward pass, ``"dots"`` also keeps the products listed at
+    ``_SAVED_DOTS``, ``"none"`` returns ``fn`` itself.  Read when the
+    wrapper is made, as JAX reads it when tracing."""
+    mode = _STATE["remat"]
+    if mode == "none":
+        return fn
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            _checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    elif mode != "full":
+        raise ValueError(f"remat must be full, dots or none, not {mode!r}")
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():     # nothing to keep for a backward
+            return fn(*args)
+        return _checkpoint.checkpoint(fn, *args, **kw)
+    return wrapped
 
 
 @contextlib.contextmanager

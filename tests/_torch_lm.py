@@ -5,7 +5,12 @@
 ``batches`` draws the same seeded inputs for both; ``assert_close`` holds
 a port tensor to a JAX array as a share of the JAX array's largest
 magnitude; ``serve_both`` runs the same requests through both packages'
-``DecodeServer``, recording every decode call's logits.
+``DecodeServer``, recording every decode call's logits.  For training:
+``train_batches`` adds seeded ``labels``, ``auto_mesh`` is the 1 x 1 mesh
+whose axes are ``Auto`` (``repro.launch.mesh.make_local_mesh`` gives
+``Explicit`` axes under jax 0.9, which the reference's sharding constraints
+refuse), and ``assert_tree_close`` holds a port tree (JAX layout, from
+``named_to_numpy``) to a JAX tree leaf by leaf.
 
 Modes and tolerances: float32, ``FP32_TOL`` 1e-5 (float32 rounds at
 2^-24; the two packages sum in other orders and use their own
@@ -90,6 +95,36 @@ def batches(cfg, b: int, s: int, seed: int = 0):
         x = rng.standard_normal(shape).astype(np.float32)
         jb[name], tb[name] = jnp.asarray(x), torch.from_numpy(x)
     return jb, tb
+
+
+def train_batches(cfg, b: int, s: int, seed: int = 0):
+    """``batches`` plus the same seeded ``labels`` (B, S) in both."""
+    jb, tb = batches(cfg, b, s, seed)
+    labels = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)
+    jb["labels"] = jnp.asarray(labels)
+    tb["labels"] = torch.from_numpy(labels.astype(np.int64))
+    return jb, tb
+
+
+def auto_mesh():
+    return jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+
+
+def assert_tree_close(port_tree, jax_tree, tol: float) -> None:
+    """Every leaf of ``port_tree`` (numpy, JAX layout) within ``tol`` of
+    JAX's leaf at the same path, as a share of its largest magnitude."""
+    got = jax.tree_util.tree_flatten_with_path(port_tree)[0]
+    want = jax.tree_util.tree_flatten_with_path(
+        jax.tree_util.tree_map(np.asarray, jax_tree))[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        w = np.asarray(w, dtype=np.float32)
+        assert g.shape == w.shape, path
+        err = float(np.abs(g - w).max())
+        assert err <= tol * max(float(np.abs(w).max()), 1e-30), (
+            jax.tree_util.keystr(path), err, float(np.abs(w).max()))
 
 
 def assert_round_trip(jparams, params) -> None:

@@ -82,7 +82,8 @@ def test_tuning_registry_matches_jax():
 @pytest.mark.parametrize("spec", [
     "", "baseline", "q_chunk=1024;scores_dtype=bf16",
     "gqa_native=on;act_bf16=1;scores_dtype=f32", "act_bf16=false",
-    " q_chunk = 64 ; gqa_native=true"])
+    " q_chunk = 64 ; gqa_native=true",
+    "xent_chunk=128;remat=dots;grad_bf16=on"])
 def test_tuning_parse_matches_jax(spec):
     assert tuning.parse(spec) == jax_tuning.parse(spec)
 
@@ -92,7 +93,8 @@ def test_tuning_parse_matches_jax(spec):
 def test_tuning_unported_knobs_raise(name):
     """A JAX knob whose reader the port lacks is refused, not ignored."""
     item = tuning._UNPORTED[name]
-    assert item in ("11c", "11d")
+    # micro_tokens' only reader is auto_microbatch, called by the dry run
+    assert item == ("11e" if name == "micro_tokens" else "11d")
     spec = f"{name}={jax_tuning._DEFAULTS[name]}"
     jax_tuning.parse(spec)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
@@ -103,6 +105,106 @@ def test_tuning_unported_knobs_raise(name):
         with tuning.overrides(q_chunk=16, **{name: jax_tuning.get(name)}):
             pass
     assert tuning.get("q_chunk") == 512
+
+
+TRAINING_KNOBS = {"xent_chunk": 4, "remat": "dots", "grad_bf16": True}
+
+
+def _knob_readers(monkeypatch) -> dict:
+    """What each training knob's reader did on a bf16 ``chunked_xent`` of
+    S 8 (and a ``remat_wrap``): chunks checkpointed, cotangent casts
+    applied, and whether the wrapped function is the function itself."""
+    from repro_torch.models import layers
+
+    seen = {"xent_chunk": 0, "grad_bf16": 0}
+    checkpoint, cast = layers.checkpoint, layers._CtCastBf16.apply
+
+    def counted_checkpoint(*a, **kw):
+        seen["xent_chunk"] += 1
+        return checkpoint(*a, **kw)
+
+    def counted_cast(x):
+        seen["grad_bf16"] += 1
+        return cast(x)
+
+    monkeypatch.setattr(layers, "checkpoint", counted_checkpoint)
+    monkeypatch.setattr(layers._CtCastBf16, "apply", counted_cast)
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn(2, 8, 16, generator=gen).to(torch.bfloat16)
+    emb = torch.randn(32, 16, generator=gen)
+    layers.chunked_xent(h, emb, torch.randint(0, 32, (2, 8), generator=gen))
+
+    def f(x):
+        return x
+    seen["remat"] = tuning.remat_wrap(f) is not f
+    return seen
+
+
+@pytest.mark.parametrize("name", sorted(TRAINING_KNOBS))
+def test_tuning_training_knobs_are_read(name, monkeypatch):
+    """The training knobs (ROADMAP 11c, ported) are accepted with JAX's
+    defaults and typed by parse as JAX's are, and each one's setting
+    changes what its reader does: ``xent_chunk`` 4 cuts S 8 into two
+    checkpointed chunks (one at the default 256), ``grad_bf16`` casts the
+    cotangent once (never by default), ``remat`` "dots" wraps as "full"
+    does (and "none" returns the function itself)."""
+    assert name in tuning._DEFAULTS and name not in tuning._UNPORTED
+    assert tuning.get(name) == jax_tuning._DEFAULTS[name]
+    value = TRAINING_KNOBS[name]
+    spec = f"{name}={value}"
+    assert tuning.parse(spec) == jax_tuning.parse(spec) == {name: value}
+    want = {"xent_chunk": (1, 2), "grad_bf16": (0, 1), "remat": (True, True)}
+    with monkeypatch.context() as mp:
+        assert _knob_readers(mp)[name] == want[name][0]
+    with tuning.overrides(**{name: value}), monkeypatch.context() as mp:
+        assert tuning.get(name) == value
+        assert _knob_readers(mp)[name] == want[name][1]
+    if name == "remat":
+        with tuning.overrides(remat="none"), monkeypatch.context() as mp:
+            assert _knob_readers(mp)["remat"] is False
+
+
+def test_remat_wrap_follows_the_knob():
+    """``remat_wrap`` gives the function itself at "none", a checkpointed
+    one that computes the same value and gradient at "full" and "dots",
+    and refuses another mode when it wraps."""
+    def f(x):
+        return torch.sin(x @ x.T).sum()
+
+    x = torch.randn(4, 4, dtype=torch.float64, requires_grad=True)
+    want = torch.autograd.grad(f(x), x)[0]
+    with tuning.overrides(remat="none"):
+        assert tuning.remat_wrap(f) is f
+    for mode in ("full", "dots"):
+        with tuning.overrides(remat=mode):
+            g = tuning.remat_wrap(f)
+        assert g is not f
+        assert torch.equal(torch.autograd.grad(g(x), x)[0], want)
+    with tuning.overrides(remat="everything"):
+        with pytest.raises(ValueError, match="full, dots or none"):
+            tuning.remat_wrap(f)
+
+
+def test_mesh_and_fsdp_are_refused():
+    """Training over a mesh or with FSDP is ROADMAP item 11d: refused, not
+    ignored."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint, loop, step
+
+    model = build_model(configs.smoke_config(
+        configs.get_config("qwen3-1.7b")), device="cpu")
+    for call in (lambda: step.build_train_step(model, mesh=object()),
+                 lambda: step.build_train_step(model, fsdp=True),
+                 lambda: loop.train(model, None, loop.LoopConfig(ckpt_dir="unused"),
+                                    mesh=object()),
+                 lambda: checkpoint.restore("/nonexistent", {},
+                                            shardings={})):
+        with pytest.raises(NotImplementedError, match="11d"):
+            call()
+    # fsdp=None on one device is no FSDP, whatever JAX's needs_fsdp says
+    assert callable(step.build_train_step(model, fsdp=None)[0])
+    assert not hasattr(step, "needs_fsdp")       # 11d, with FSDP
+    assert not hasattr(step, "auto_microbatch")  # 11e, with the dry run
 
 
 def test_tuning_overrides_and_scores_dtype():
