@@ -190,9 +190,9 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    prefill, each within ``LM_TOL`` (largest row relative L2
                    error); the same comparison with the weights rounded to
                    e4m3 must fail it;
-               14b ``DecodeServer(batch_slots=4, max_seq=512)`` on 8
-                   seeded requests (prompts log-uniform in 8-128,
-                   ``max_new`` 16-64), half constrained by three masks (an
+               14b ``DecodeServer(batch_slots=4, max_seq=512)`` on 6
+                   seeded requests (prompts log-uniform in 8-64,
+                   ``max_new`` 8-32), half constrained by three masks (an
                    allowed set, a whitelist, a banned stop-list): every
                    constrained token in numpy's intersection, every ticket
                    resolving to its request's tokens, the mask ops
@@ -275,6 +275,31 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    xlstm at 64 (the reference's Mamba2 and mLSTM gradients
                    are NaN past them, ``TRAIN_SSD_SEQ``); the three
                    kernels' launches, 0, print apart.
+ 17. LM serving over a mesh — four logical shards on the card
+               (``make_local_mesh(devices=["cuda:0"] * 4)`` and a (2, 2)
+               ``(data, model)`` mesh), through ``build_serve_decode`` /
+               ``build_serve_prefill`` and the ``flash_decode`` knob, fp32
+               weights from seed 0 and bf16 activations:
+               17a qwen3-1.7b unreduced, B 4 from a seeded random 512-row
+                   cache: layer 0's flash route against the dense one and
+                   float32 at positions 127, 128, 255, 256 and 511 with no
+                   window and a 256 window (caches bit-identical, output
+                   within ``MESH_ATTN_TOL``); whole decode steps at those
+                   positions against the unsharded step and float32
+                   (logits within ``LM_TOL``; the cache's untouched rows
+                   and layer 0's written row bit-identical, the other
+                   written rows within ``LM_TOL``); a decode step's time
+                   sharded and unsharded, in turns (the shard loop's
+                   overhead, no gain claimed);
+               17b deepseek-moe-16b at its widths, 4 of its 28 layers (1
+                   dense, 3 MoE), on (1, 4) and (2, 2): a B 4 decode step
+                   (the expert-parallel MoE and flash decode; no pair
+                   drops) against the single-device step, and a B 4 x S
+                   512 prefill in bf16 against float32 on the same mesh,
+                   every position, within ``LM_TOL`` (tokens whose applied
+                   experts differ left out only if some row fails, as
+                   15a), each route's dropped pairs printed; the three
+                   kernels' launches, 0, print apart.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -290,8 +315,8 @@ expressions`` and ``async 10b expressions``, ``11a sharded query_batch``,
 suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
 baselines excluded), ``async 12b virtual 0.5x`` / ``1.5x``, ``async 12c
 metrics`` / ``traced`` (the first run of each), ``async 12c traced low``
-and ``12e traced suggest_batch``; 13a's, 14's, 15's and 16's counts, 0
-for every kernel, print apart.  The
+and ``12e traced suggest_batch``; 13a's and 14's-17's counts, 0 for
+every kernel, print apart.  The
 last lines are the kernel table as JSON (each kernel's ``launches`` on
 its main path, phase 4 or 7, and ``launches_by_path``) and ``{"ok": true,
 "device": {...}}``.  ``--report``
@@ -403,11 +428,13 @@ LM_TOL = 0.08
 LM_SLOTS, LM_MAX_SEQ = 4, 512        # 14b: DecodeServer
 # 14b, 15a and 15b are cut to keep the script well inside its time limit
 # on a slow host (the run that added phase 16 took 1082.6 s, 14b 153 s and
-# 15 304 s of it): 8 requests here (was 16), 4 in 15b (was 8), 64
+# 15 304 s of it; the one that added phase 17 794.6 s, 14b 83.7 s): 6
+# requests here (was 16, then 8), still more than the slots, with prompts
+# of 8-64 (was 8-128) and max_new 8-32 (was 16-64); 4 in 15b (was 8), 64
 # positions in 15a (was 128)
-LM_REQUESTS = 8                      # half of them constrained
-LM_PROMPT_RANGE = (8, 128)           # log-uniform prompt lengths
-LM_MAX_NEW_RANGE = (16, 64)          # uniform max_new
+LM_REQUESTS = 6                      # half of them constrained
+LM_PROMPT_RANGE = (8, 64)            # log-uniform prompt lengths
+LM_MAX_NEW_RANGE = (8, 32)           # uniform max_new
 LM_ALLOWED, LM_WHITELIST, LM_STOP = 60000, 90000, 1000   # the three masks
 LM_MASK_VOCAB = 151936               # phase 15 scales them to its vocabularies
 LM_TICKER_REQUESTS, LM_TICKER_THREADS = 4, 2
@@ -486,6 +513,37 @@ TRAIN_BLOCK_DX = 0.25
 # semantics, so zamba2 trains at 32 positions and xlstm at 64
 TRAIN_SSD_SEQ = {"ssm_hybrid": 32, "xlstm": 64}
 TRAIN_MOE_BYTES = 60e9               # 16d: deepseek's 16 bytes a parameter
+
+# -- LM serving over a mesh (phase 17) -----------------------------------------
+MESH_SHARDS = 4                      # logical shards, all on the one card
+MESH_LM_BATCH, MESH_LM_DEPTH = 4, 512    # 17a: qwen3-1.7b, 128 rows a shard
+MESH_LM_POSITIONS = (127, 128, 255, 256, 511)   # both sides of each boundary
+MESH_LM_WINDOW = 256                 # 17a: a window passed to attention_decode
+# 17b: deepseek-moe-16b at its widths cut to its dense block and 3 MoE
+# blocks: 28 layers are 64.7 GB of fp32 weights, and phase 17 runs every
+# step in bf16 and float32 on two meshes within its 90 s; 4 layers take
+# every path (dense block, shared experts, expert parallelism) at full width
+MESH_MOE_LAYERS = 4
+MESH_MOE_SHAPES = ((1, 4), (2, 2))
+MESH_MOE_DEPTH = 64                  # 17b: decode at B 4 from a 64-row cache
+MESH_MOE_PREFILL = 512               # 17b: B 4 x S 512, t_loc * k = 3072 > 512
+MESH_TIME_ITERS = 5
+# 17b, a MoE layer's float32 output (TF32 off), sharded against the
+# single-device dispatch on each shard's token slice: the same pairs, summed
+# in another order (other product shapes, index_add_'s atomics), a few
+# float32 units (2^-23) of a row; a wrong slot, expert, weight or a lost
+# pair moves one of the k = 6 expert outputs, some tenths of the row
+MESH_MOE_LOCAL_TOL = 1e-4
+# 17a, one attention layer on one bf16 input: the flash route against the
+# dense one, and against the float32 dense one.  The two bf16 routes
+# differ only in where they round (flash rounds the scaled query, the
+# exponentials and the numerator to bf16): a few units of bf16 rounding
+# (2^-8 each) of the output row's norm; 0.02 is five units.  A wrong
+# combine (a missing exp(mx_l - mx_g), a shard written twice, a row
+# masked wrongly) moves whole softmax weights, far past it.  The logits
+# of whole decode steps are held to LM_TOL, as phase 14 holds decode
+# against prefill: two bf16 evaluations of one function.
+MESH_ATTN_TOL = 0.02
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -3446,7 +3504,8 @@ def prefill_logits(torch, model, params, batch, **kw):
                         for h in hidden])
 
 
-def held_err(errs, agree, what: str, hold: bool = True) -> dict:
+def held_err(errs, agree, what: str, hold: bool = True,
+             phase: str = "15a") -> dict:
     """``errs`` (rows) against ``LM_TOL`` if ``hold``: all of them, unless
     some row past it has routes that differ (``agree`` False, MoE only):
     then only the rows whose routes agree are held, and the largest error
@@ -3461,8 +3520,18 @@ def held_err(errs, agree, what: str, hold: bool = True) -> dict:
         out["err_flipped_rows"] = float(errs[~agree].max())
         out["err"] = float(errs[agree].max()) if agree.any() else 0.0
     require(not hold or out["err"] <= LM_TOL,
-            f"15a: {what} {out['err']} > {LM_TOL} ({out['held']})")
+            f"{phase}: {what} {out['err']} > {LM_TOL} ({out['held']})")
     return out
+
+
+def joined_route(routes):
+    """One ``moe.Route`` of ``routes`` (a layer's, one a shard in token
+    order), their tokens joined."""
+    import torch
+
+    if len(routes) == 1:
+        return routes[0]
+    return type(routes[0])(*(torch.cat(f) for f in zip(*routes)))
 
 
 class BlockHold:
@@ -3473,10 +3542,11 @@ class BlockHold:
     must be a near-tie (the gap between its float32 k-th and (k+1)-th
     log-probabilities within ``FAM_NEAR_TIE``), and rows whose applied
     experts differ are left out only if some row fails; flips are
-    counted."""
+    counted.  A block's routes may be several (one a shard on a mesh, in
+    token order): they are joined."""
 
-    def __init__(self, what: str):
-        self.what = what
+    def __init__(self, what: str, phase: str = "15a"):
+        self.what, self.phase = what, phase
         self.out = {"blocks": 0, "err": 0.0, "worst_block": -1,
                     "route_flips": 0, "moe_blocks": 0, "held": "all rows",
                     "errs": [], "blocks_held_on_agreeing_rows": 0,
@@ -3486,8 +3556,8 @@ class BlockHold:
     def add(self, i: int, y16, y32, r16, r32) -> None:
         out, agree = self.out, None
         errs = lm_row_errs(y16, y32)
-        if r32:                          # a MoE block: one route each
-            (a16,), (a32,) = r16, r32
+        if r32:                          # a MoE block
+            a16, a32 = joined_route(r16), joined_route(r32)
             agree = (a16.applied.sort(-1)[0] == a32.applied.sort(-1)[0]
                      ).all(-1).cpu().numpy()
             flipped = (a16.topi.sort(-1)[0] != a32.topi.sort(-1)[0]).any(-1)
@@ -3498,8 +3568,9 @@ class BlockHold:
                 gap = float((top[:, k - 1] - top[:, k]).max())
                 out["flip_gap"] = max(out["flip_gap"], gap)
                 require(gap <= FAM_NEAR_TIE,
-                        f"15a: {self.what} block {i}: a route flip with a "
-                        f"log-gap {gap} > {FAM_NEAR_TIE}, no near-tie")
+                        f"{self.phase}: {self.what} block {i}: a route "
+                        f"flip with a log-gap {gap} > {FAM_NEAR_TIE}, no "
+                        f"near-tie")
             r16.clear()
             r32.clear()
             out["route_flips"] += int(flipped.sum())
@@ -3512,7 +3583,8 @@ class BlockHold:
             if not agree.all():
                 out["err_rows_differ"] = max(out["err_rows_differ"],
                                              float(errs_np[~agree].max()))
-        r = held_err(errs, agree, f"{self.what} block {i}")
+        r = held_err(errs, agree, f"{self.what} block {i}",
+                     phase=self.phase)
         out["errs"].append(r["err"])
         if r["held"] != "all rows":
             out["blocks_held_on_agreeing_rows"] += 1
@@ -3521,13 +3593,14 @@ class BlockHold:
         out["blocks"] += 1
 
 
-def check_prefill_blocks(torch, model, model32, params, tokens, log) -> dict:
+def check_prefill_blocks(torch, model, model32, params, tokens, log,
+                         phase: str = "15a") -> dict:
     """``BlockHold`` over the prefill's blocks (``Model.blocks``); the MoE
     blocks return (stream, aux)."""
     from repro_torch.models import transformer
 
     kw = {"routes": log} if model.cfg.family == "moe" else {}
-    hold, log16 = BlockHold("prefill"), []
+    hold, log16 = BlockHold("prefill", phase), []
     kw16 = {"routes": log16} if kw else {}
     with no_tf32(torch), torch.no_grad():
         x = transformer._embed(params, model32.cfg, tokens)
@@ -4425,6 +4498,424 @@ def run_lm_training(torch, report) -> dict:
     return launches
 
 
+# -- phase 17: LM serving over a mesh ------------------------------------------
+
+@contextlib.contextmanager
+def counted_calls(module, name: str):
+    """Count the calls of ``module.name`` inside the block (a list that
+    grows one entry a call): the sharded routes, to show a run took them."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def recorded_moe_calls(moe):
+    """17b: each ``moe._moe_ffn_shardmap`` call inside the block as (the
+    layer's parameters, its config, its input, its output, its aux, the
+    routes it appended)."""
+    real = moe._moe_ffn_shardmap
+    calls = []
+
+    def wrapped(p, cfg, x, mesh, routes=None):
+        n0 = len(routes)
+        out, aux = real(p, cfg, x, mesh, routes)
+        calls.append((p, cfg, x, out, aux, routes[n0:]))
+        return out, aux
+    moe._moe_ffn_shardmap = wrapped
+    try:
+        yield calls
+    finally:
+        moe._moe_ffn_shardmap = real
+
+
+def moe_vs_local_slices(torch, moe, calls, t_loc: int) -> dict:
+    """17b: each recorded sharded MoE call against the single-device
+    dispatch (``_moe_ffn_local``) run on each ``t_loc``-token slice that a
+    shard routes, in token order: the same capacity (``t_loc * k`` > 512,
+    so both are ``capacity(cfg, t_loc)``) through none of the sharded
+    stages or collectives.  The applied experts must be equal, each
+    output row within ``MESH_MOE_LOCAL_TOL`` (relative L2) and the aux
+    within it of the slices' mean.  Float32 with TF32 off."""
+    err = aux_err = 0.0
+    with no_tf32(torch), torch.no_grad():
+        for i, (p, cfg, x, out, aux, routes) in enumerate(calls):
+            d = x.shape[-1]
+            xf = x.reshape(-1, d)
+            require(xf.shape[0] == t_loc * len(routes),
+                    f"17b: MoE layer {i}: {len(routes)} routes of {t_loc} "
+                    f"tokens for {xf.shape[0]} tokens")
+            outs, auxes = [], []
+            for j, r_sh in enumerate(routes):
+                r = []
+                o, a = moe._moe_ffn_local(
+                    p, cfg, xf[j * t_loc:(j + 1) * t_loc][None], r)
+                require(torch.equal(r[0].applied, r_sh.applied),
+                        f"17b: MoE layer {i} slice {j}: the sharded route's "
+                        f"applied experts differ from the single-device "
+                        f"dispatch's")
+                outs.append(o[0])
+                auxes.append(a)
+            want = torch.cat(outs)
+            err = max(err, float(lm_row_errs(out.reshape(-1, d), want).max()))
+            a_want = torch.stack(auxes).mean()
+            aux_err = max(aux_err, float((aux - a_want).abs() / a_want.abs()))
+    require(err <= MESH_MOE_LOCAL_TOL and aux_err <= MESH_MOE_LOCAL_TOL,
+            f"17b: sharded MoE vs single-device slices: output {err}, aux "
+            f"{aux_err} > {MESH_MOE_LOCAL_TOL}")
+    return {"layers": len(calls), "err": err, "aux_err": aux_err}
+
+
+def random_cache(torch, cache_abs, gen, device) -> dict:
+    """A cache of ``cache_abs``'s shapes and dtypes filled with N(0, 1)
+    from ``gen``: the past positions a decode step attends to (K after its
+    norm and RoPE, and V, are of unit scale)."""
+    return {k: torch.randn(tuple(v.shape), generator=gen, device=device
+                           ).to(v.dtype) for k, v in cache_abs.items()}
+
+
+def cache_rows_held(torch, got, want, pos: int, what: str) -> float:
+    """17a: a sharded decode step's cache against the unsharded one's: every
+    row but ``pos`` untouched (bit-identical), layer 0's row ``pos``
+    bit-identical (both write ``_qkv`` of the same input), and the other
+    layers' row ``pos`` within ``LM_TOL``: their inputs are the residual
+    streams of two bf16 evaluations of one function, which differ by the
+    attention's rounding in every layer before.  Returns that largest row
+    error."""
+    err = 0.0
+    for name in want:
+        diff = (got[name] != want[name]).any(dim=(0, 1, 3, 4))
+        rows = diff.nonzero().flatten().tolist()
+        require(rows in ([], [pos]), f"{what}: cache {name} rows {rows} "
+                f"changed, only {pos} may")
+        require(torch.equal(got[name][0], want[name][0]),
+                f"{what}: layer 0's cache {name} differs")
+        n = got[name].shape[0]
+        err = max(err, lm_row_err(got[name][:, :, pos].reshape(n, -1),
+                                  want[name][:, :, pos].reshape(n, -1).float()))
+    require(err <= LM_TOL, f"{what}: written cache rows {err} > {LM_TOL}")
+    return err
+
+
+def run_mesh_dense(torch, out) -> None:
+    """17a: qwen3-1.7b unreduced over a (1, 4) mesh on the card, the
+    ``flash_decode`` knob on (see ``run_mesh_serving``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tuning
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import attn_spec
+    from repro_torch.parallel import ctx
+    from repro_torch.train.step import build_serve_decode
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    mesh = make_local_mesh(devices=[dev] * MESH_SHARDS)
+    b = MESH_LM_BATCH
+    decode, _, _, cache_abs = build_serve_decode(model, mesh, b,
+                                                 MESH_LM_DEPTH)
+    base = random_cache(torch, cache_abs, gen, dev)
+    rng = np.random.default_rng(SEED + 17)
+
+    # one attention layer, both windows, every position: flash vs dense
+    attn, spec = params.layers[0].attn, attn_spec(cfg)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device=dev).to(
+        cfg.activation_dtype)
+    layer = {"err": 0.0, "err_f32": 0.0, "cases": 0}
+    for window in (None, MESH_LM_WINDOW):
+        for pos in MESH_LM_POSITIONS:
+            kd, vd = base["k"][0].clone(), base["v"][0].clone()
+            dense, _, _ = layers.attention_decode(attn, spec, x, kd, vd, pos,
+                                                  window=window)
+            kf, vf = base["k"][0].clone(), base["v"][0].clone()
+            with ctx.activation_mesh(mesh), \
+                    tuning.overrides(flash_decode=True), \
+                    counted_calls(layers, "_attention_decode_flash") as calls:
+                flash, _, _ = layers.attention_decode(attn, spec, x, kf, vf,
+                                                      pos, window=window)
+            with no_tf32(torch):
+                ref, _, _ = layers.attention_decode(
+                    attn, spec, x.float(), base["k"][0].float(),
+                    base["v"][0].float(), pos, window=window)
+            what = f"17a layer 0 at {pos}, window {window}"
+            require(len(calls) == 1, f"{what}: flash route not taken")
+            require(torch.equal(kd, kf) and torch.equal(vd, vf),
+                    f"{what}: caches differ from the dense route's")
+            e = lm_row_err(flash.reshape(b, -1), dense.reshape(b, -1).float())
+            e32 = lm_row_err(flash.reshape(b, -1), ref.reshape(b, -1))
+            require(e <= MESH_ATTN_TOL and e32 <= MESH_ATTN_TOL,
+                    f"{what}: against dense {e}, float32 {e32} > "
+                    f"{MESH_ATTN_TOL}")
+            layer["err"] = max(layer["err"], e)
+            layer["err_f32"] = max(layer["err_f32"], e32)
+            layer["cases"] += 1
+    out["17a_layer"] = layer
+
+    # whole decode steps at every position
+    steps = []
+    for pos in MESH_LM_POSITIONS:
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1))).to(dev)
+        cu = {k: v.clone() for k, v in base.items()}
+        lu, cu = model.decode(params, cu, tok, pos)
+        cs = {k: v.clone() for k, v in base.items()}
+        with tuning.overrides(flash_decode=True), \
+                counted_calls(layers, "_attention_decode_flash") as calls:
+            ls, cs = decode(params, cs, tok, pos)
+        require(len(calls) == cfg.n_layers,
+                f"17a at {pos}: {len(calls)} flash layers of {cfg.n_layers}")
+        with no_tf32(torch):
+            l32, _ = model32.decode(params, {k: v.float() for k, v in
+                                             base.items()}, tok, pos)
+        row = {"pos": pos, "cache_row_err": cache_rows_held(
+            torch, cs, cu, pos, f"17a at {pos}"),
+            "vs_unsharded": lm_row_err(ls, lu.float()),
+            "vs_f32": lm_row_err(ls, l32), "unsharded_vs_f32": lm_row_err(lu, l32)}
+        require(torch.isfinite(ls).all() and ls.shape == (b, cfg.vocab),
+                f"17a at {pos}: logits not finite or misshapen")
+        require(max(row["vs_unsharded"], row["vs_f32"],
+                    row["unsharded_vs_f32"]) <= LM_TOL,
+                f"17a at {pos}: {row} past {LM_TOL}")
+        steps.append(row)
+        del cu, cs
+    out["17a_steps"] = steps
+
+    # a decode step's time, unsharded and sharded in turns
+    tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    pos = MESH_LM_DEPTH - 1
+
+    def unsharded():
+        model.decode(params, base, tok, pos)
+
+    def sharded():
+        with tuning.overrides(flash_decode=True):
+            decode(params, base, tok, pos)
+    runs = {"unsharded": unsharded, "sharded": sharded}
+    times = {"unsharded": [], "sharded": []}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        times[name].append(cuda_ms(torch, runs[name], iters=MESH_TIME_ITERS))
+    out["17a_ms"] = times
+    print(f"phase 17a {cfg.name} on a {mesh.devices.shape} mesh over "
+          f"{dev} (flash_decode on), B {b}, cache {MESH_LM_DEPTH}: layer 0 "
+          f"flash vs dense over {layer['cases']} cases (positions "
+          f"{MESH_LM_POSITIONS}, window none and {MESH_LM_WINDOW}) caches "
+          f"bit-identical, output {layer['err']:.2e} (float32 "
+          f"{layer['err_f32']:.2e}; bound {MESH_ATTN_TOL}); decode steps: "
+          + "; ".join(f"{r['pos']}: vs unsharded {r['vs_unsharded']:.4f}, "
+                      f"vs float32 {r['vs_f32']:.4f} (unsharded "
+                      f"{r['unsharded_vs_f32']:.4f}), written cache rows "
+                      f"{r['cache_row_err']:.2e}" for r in steps)
+          + f" (bound {LM_TOL}); step ms unsharded "
+          f"{[round(t, 3) for t in times['unsharded']]}, sharded "
+          f"{[round(t, 3) for t in times['sharded']]} (in turns; the shard "
+          f"loop's overhead, no gain claimed)")
+    del params, model, model32, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def route_rows(torch, a, b, per_a: int, per_b: int, batch: int
+               ) -> np.ndarray:
+    """The batch rows whose tokens' applied experts agree in every MoE
+    layer between two runs' route lists (``per_a`` / ``per_b`` routes a
+    layer, one a shard in token order), (``batch``,) bool."""
+    def per_layer(routes, n):
+        return [torch.cat([r.applied for r in routes[i:i + n]])
+                for i in range(0, len(routes), n)]
+    la, lb = per_layer(a, per_a), per_layer(b, per_b)
+    require(len(la) == len(lb), f"17b: {len(la)} vs {len(lb)} MoE layers")
+    return np.logical_and.reduce([
+        (x == y).all(dim=-1).reshape(batch, -1).all(dim=-1).cpu().numpy()
+        for x, y in zip(la, lb)])
+
+
+def run_mesh_moe(torch, out) -> None:
+    """17b: deepseek-moe-16b at its widths, ``MESH_MOE_LAYERS`` layers,
+    over (1, 4) and (2, 2) meshes on the card (see ``run_mesh_serving``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tuning
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import make_mesh2d
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import ctx
+    from repro_torch.train.step import build_serve_decode, build_serve_prefill
+
+    full = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS)
+    model = build_model(cfg)
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    b = MESH_LM_BATCH
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    rng = np.random.default_rng(SEED + 171)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1))).to(dev)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, MESH_MOE_PREFILL))).to(dev)
+    base = random_cache(torch, model.init_cache(b, MESH_MOE_DEPTH), gen, dev)
+    pos = MESH_MOE_DEPTH - 1
+    routes_u = []
+    lu, _ = model.decode(params, {k: v.clone() for k, v in base.items()}, tok,
+                         pos, routes=routes_u)
+    rows = []
+    for shape in MESH_MOE_SHAPES:
+        mesh = make_mesh2d(shape[0], shape[1], data_axis="data",
+                           shard_axis="model", devices=[dev] * MESH_SHARDS)
+        decode = build_serve_decode(model, mesh, b, MESH_MOE_DEPTH)[0]
+        routes_s = []
+        with tuning.overrides(flash_decode=True), \
+                counted_calls(moe, "_moe_ffn_shardmap") as calls:
+            ls, _ = decode(params, {k: v.clone() for k, v in base.items()},
+                           tok, pos, routes=routes_s)
+        require(len(calls) == n_moe, f"17b {shape}: {len(calls)} sharded "
+                f"MoE layers of {n_moe}")
+        agree = route_rows(torch, routes_u, routes_s, 1,
+                           len(routes_s) // n_moe, b)
+        dec = held_err(lm_row_errs(ls, lu.float()), agree,
+                       f"decode on {shape} vs single-device", phase="17b")
+        dec["dropped"] = int(sum((r.applied == -1).sum() for r in routes_s))
+        require(dec["dropped"] == 0 and all(
+            (r.applied == -1).sum() == 0 for r in routes_u),
+            f"17b {shape}: a decode pair dropped")
+        # prefill: every position's logits in bf16 and float32 on this
+        # mesh, one row a token; a token's routes agree when its applied
+        # experts do in every MoE layer
+        rb, rf = [], []
+        with ctx.activation_mesh(mesh), \
+                counted_calls(moe, "_moe_ffn_shardmap") as calls:
+            lb = prefill_logits(torch, model, params, {"tokens": prompt},
+                                routes=rb)
+            with no_tf32(torch), recorded_moe_calls(moe) as rec:
+                lf = prefill_logits(torch, model32, params,
+                                    {"tokens": prompt}, routes=rf)
+        require(len(calls) == 2 * n_moe, f"17b {shape}: prefill took the "
+                f"sharded MoE {len(calls)} times, not {2 * n_moe}")
+        # the float32 prefill's MoE layers against an independent path at
+        # the same capacity: every peer routes its 1/M of a data shard
+        t_loc = b // shape[0] * MESH_MOE_PREFILL // shape[1]
+        require(t_loc * cfg.experts_per_token > 512,
+                f"17b {shape}: {t_loc} tokens a shard drop nothing")
+        vs_local = moe_vs_local_slices(torch, moe, rec, t_loc)
+        del rec
+        require(torch.isfinite(lb).all(), f"17b {shape}: prefill not finite")
+        shards = len(rb) // n_moe
+        agree = route_rows(torch, rf, rb, shards, shards, b * MESH_MOE_PREFILL)
+        pre = held_err(lm_row_errs(lb, lf), agree,
+                       f"prefill on {shape} bf16 vs float32", phase="17b")
+        pre["vs_local"] = vs_local
+        # block by block (as 15a): each bf16 block fed the float32
+        # stream's input, every top-k flip a near-tie of the float32 router
+        with ctx.activation_mesh(mesh):
+            pre["blocks"] = check_prefill_blocks(
+                torch, model, model32, params, prompt, [], phase="17b")
+        pre["dropped_bf16"] = [int((r.applied == -1).sum()) for r in rb]
+        pre["dropped_f32"] = [int((r.applied == -1).sum()) for r in rf]
+        # the builder's prefill: the last position's logits of the same
+        # evaluation (bf16 index_add_ atomics differ from run to run)
+        last = build_serve_prefill(model, mesh)[0](params, {"tokens": prompt})
+        pre["builder_vs_last"] = lm_row_err(last, lb[:, -1])
+        require(last.shape == (b, cfg.vocab)
+                and pre["builder_vs_last"] <= MESH_ATTN_TOL,
+                f"17b {shape}: build_serve_prefill vs the same evaluation "
+                f"{pre['builder_vs_last']} > {MESH_ATTN_TOL}")
+        del lb, lf
+        rows.append({"shape": shape, "decode": dec, "prefill": pre})
+        bl = pre["blocks"]
+        print(f"phase 17b {cfg.name} ({cfg.n_layers} of {full.n_layers} "
+              f"layers, E {cfg.n_experts}, k {cfg.experts_per_token}, d "
+              f"{cfg.d_model}, moe_d_ff {cfg.moe_d_ff}) on a {shape} mesh: "
+              f"decode B {b} at {pos} vs single-device {dec['err']:.4f} "
+              f"({dec['held']}, {dec['rows_routes_differ']} rows' routes "
+              f"differ; bound {LM_TOL}), no pair dropped; prefill B {b} x S "
+              f"{MESH_MOE_PREFILL} bf16 vs float32, every position, "
+              f"{pre['err']:.4f} ({pre['held']}, {pre['rows_routes_differ']} "
+              f"of {pre['rows']} tokens' routes differ, their largest error "
+              f"{pre.get('err_flipped_rows', float('nan')):.4f}; builder's "
+              f"last position {pre['builder_vs_last']:.2e}); block by block "
+              f"{bl['err']:.4f} ({bl['blocks_held_on_agreeing_rows']} "
+              f"blocks held on the rows whose applied experts agree, "
+              f"{bl['rows_differ']} token-layers left out, their "
+              f"largest error {bl['err_rows_differ']:.4f}; "
+              f"{bl['route_flips']} top-k flips in "
+              f"{bl['pairs']} token-layers, each a "
+              f"near-tie: largest log-gap {bl['flip_gap']:.5f}, "
+              f"bound {FAM_NEAR_TIE}); float32 MoE layers vs single-device "
+              f"slices at capacity(cfg, {t_loc}): output "
+              f"{vs_local['err']:.2e}, aux {vs_local['aux_err']:.2e} (bound "
+              f"{MESH_MOE_LOCAL_TOL}), applied experts equal; dropped pairs "
+              f"per route (layer-major, {shards} "
+              f"shards a layer) bf16 {pre['dropped_bf16']}, float32 "
+              f"{pre['dropped_f32']}")
+    out["17b"] = rows
+    del params, model, model32, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_mesh_serving(torch, report) -> dict:
+    """Phase 17: LM serving over a mesh of logical shards on the one card,
+    through ``launch.mesh``, ``train.step.build_serve_prefill`` /
+    ``build_serve_decode`` and the ``flash_decode`` knob:
+    17a qwen3-1.7b unreduced (fp32 weights from seed 0, bf16 activations)
+    on a (1, 4) mesh, B 4 from a seeded random 512-row cache: layer 0's
+    flash route against the dense one at positions 127, 128, 255, 256 and
+    511 with no window and a 256 window (caches bit-identical, output
+    within ``MESH_ATTN_TOL`` of the dense bf16 and of float32); whole
+    decode steps at those positions against the unsharded step and
+    float32 (logits within ``LM_TOL``, caches as ``cache_rows_held``);
+    a decode step's time unsharded and sharded, in turns;
+    17b deepseek-moe-16b at its widths cut to ``MESH_MOE_LAYERS`` layers on
+    (1, 4) and (2, 2): a B 4 decode step (no pair drops) against the
+    single-device step, and a B 4 x S 512 prefill in bf16 against float32
+    on the same mesh (the capacity is the knob's: pairs drop), within
+    ``LM_TOL`` (rows whose routes differ left out only if some row fails,
+    as phase 15a); each route's dropped pairs printed.  Returns the three
+    kernels' launches over the phase (none is on this path)."""
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda, "pair_count": count_block_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    out = report["mesh_serving"] = {"s": {}}
+    t = time.perf_counter()
+    run_mesh_dense(torch, out)
+    out["s"]["17a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_mesh_moe(torch, out)
+    out["s"]["17b"] = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+    require(sum(launches.values()) == 0,
+            f"17: the set-intersection kernels launched {launches}")
+    out["launches"] = launches
+    print(f"phase 17 seconds: {json.dumps(out['s'])}; the three kernels' "
+          f"launches {json.dumps(launches)}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -4611,6 +5102,10 @@ def main(argv=None) -> int:
     # phase 16: LM training at qwen3-1.7b's full width, then the families
     train_launches = run_lm_training(torch, report)
     t_phase = phase_done("16 LM training", t_phase)
+
+    # phase 17: LM serving over a mesh of logical shards on the card
+    mesh_launches = run_mesh_serving(torch, report)
+    t_phase = phase_done("17 LM serving over a mesh", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -4666,7 +5161,8 @@ def main(argv=None) -> int:
           f"{json.dumps(host_launches)}; 14 LM serving: "
           f"{json.dumps(lm_launches)}; 15 LM families: "
           f"{json.dumps(fam_launches)}; 16 LM training: "
-          f"{json.dumps(train_launches)}")
+          f"{json.dumps(train_launches)}; 17 LM serving over a mesh: "
+          f"{json.dumps(mesh_launches)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,10 @@ Conventions, as in JAX:
     autograd graph; the train step (``train/step.py``) turns it on for its
     backward pass and off again.
 
-Not here: the mesh paths (``ctx.constrain``, the flash-decode shard map).
+The mesh paths are here too: ``ctx.constrain`` where the reference
+constrains (a described layout; the port returns the tensor itself), and
+the flash decode (``_attention_decode_flash``), which ``attention_decode``
+takes under the ``flash_decode`` knob and an active mesh.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import tuning
+from ..parallel import collectives as coll
+from ..parallel import ctx
 
 # --------------------------------------------------------------------------
 # initializers
@@ -147,9 +152,12 @@ class Attention(nn.Module):
 def _qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
          positions: torch.Tensor):
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    wq = ctx.constrain(p.wq.to(dt), (None, "model", None))
+    wk = ctx.constrain(p.wk.to(dt), (None, "model", None))
+    wv = ctx.constrain(p.wv.to(dt), (None, "model", None))
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     if spec.qk_norm:
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
@@ -225,7 +233,8 @@ def attention(
         out = torch.softmax(scores, dim=-1).to(q_i.dtype)
         outs.append(torch.einsum("bhcs,bshk->bchk", out, v))
     o = torch.cat(outs, dim=1).reshape(b, s, spec.n_heads, spec.head_dim)
-    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(o.dtype))
+    wo = ctx.constrain(p.wo.to(o.dtype), ("model", None, None))
+    return torch.einsum("bshk,hkd->bsd", o, wo)
 
 
 def attention_decode(
@@ -237,14 +246,20 @@ def attention_decode(
     pos: int,                    # current position
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-token decode with KV-cache append: the dense reduction over
-    the cache.
+    """Single-token decode with KV-cache append.
 
-    Every row of the batch writes its new K/V at ``pos``.  As
-    ``jax.lax.dynamic_update_slice`` does, a ``pos`` past the end writes
-    at ``S_max - 1`` (and one below 0 at 0); RoPE and the mask still use
-    ``pos`` itself.
+    Default path: the dense reduction over the cache.  Every row of the
+    batch writes its new K/V at ``pos``.  As ``jax.lax.dynamic_update_slice``
+    does, a ``pos`` past the end writes at ``S_max - 1`` (and one below 0
+    at 0); RoPE and the mask still use ``pos`` itself.  With the
+    ``flash_decode`` knob and an active mesh that fits
+    (``_flash_applicable``), ``_attention_decode_flash`` instead.
     """
+    mesh = ctx.current_mesh()
+    if (tuning.get("flash_decode") and mesh is not None
+            and _flash_applicable(x, cache_k, mesh)):
+        return _attention_decode_flash(p, spec, x, cache_k, cache_v, pos,
+                                       window, mesh)
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(p, spec, x, positions)
@@ -268,7 +283,95 @@ def attention_decode(
     den = torch.sum(ex, dim=-1, keepdim=True)
     probs = (ex / den).to(x.dtype)
     o = torch.einsum("bhcs,bshk->bchk", probs, v)
-    out = torch.einsum("bshk,hkd->bsd", o, p.wo.to(o.dtype))
+    wo = ctx.constrain(p.wo.to(o.dtype), ("model", None, None))
+    out = torch.einsum("bshk,hkd->bsd", o, wo)
+    return out, cache_k, cache_v
+
+
+def _flash_applicable(x: torch.Tensor, cache_k: torch.Tensor, mesh) -> bool:
+    m = mesh.shape.get("model", 1)
+    dp = math.prod(mesh.shape[a] for a in ctx.dp_axes(mesh))
+    return (cache_k.shape[1] % m == 0 and x.shape[0] % dp == 0
+            and "model" in mesh.axis_names)
+
+
+def _attention_decode_flash(p: Attention, spec: AttnSpec, x: torch.Tensor,
+                            cache_k: torch.Tensor, cache_v: torch.Tensor,
+                            pos: int, window: Optional[int], mesh):
+    """Flash decoding over the mesh, the reference's ``shard_map`` written
+    as stages between collectives (``parallel/collectives.py``).
+
+    The cache is split along the sequence over ``model`` (``s_loc`` rows a
+    shard) and along the batch over the data axes; it stays whole on its
+    device, and each coordinate reads its block.  Only the shard whose rows
+    hold ``pos`` writes the new K/V (at ``pos - base``; a ``pos`` outside
+    the cache is written by no shard).  Each shard computes masked partial
+    softmax statistics (max, numerator, denominator); a ``pmax`` and two
+    ``psum``s over ``model`` with the ``exp(mx_l - mx_g)`` correction give
+    the exact softmax, so no shard reads another's cache rows.
+
+    The reference's order of rounding, which differs from the dense path:
+    ``q * scale`` is cast to the query dtype before the score product,
+    scores are float32, the exponentials are cast to the query dtype
+    before the value product, and the numerator is rescaled and summed in
+    that dtype."""
+    b = x.shape[0]
+    s_max = cache_k.shape[1]
+    m_sz = mesh.shape["model"]
+    s_loc = s_max // m_sz
+    dp = ctx.dp_axes(mesh)
+    b_l = b // math.prod(mesh.shape[a] for a in dp)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, spec, x, positions)
+    groups = spec.n_heads // spec.n_kv
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    w = window if window is not None else spec.window
+
+    def rows(c):
+        r = coll.index_along(mesh, c, dp)
+        return slice(r * b_l, (r + 1) * b_l)
+
+    def partial(c, dev):
+        base = coll.index_along(mesh, c, "model") * s_loc
+        r = rows(c)
+        ck, cv = cache_k[r, base:base + s_loc], cache_v[r, base:base + s_loc]
+        if base <= pos < base + s_loc:         # the owning shard writes
+            ck[:, pos - base] = k_new[r, 0].to(ck.dtype)
+            cv[:, pos - base] = v_new[r, 0].to(cv.dtype)
+        q_l = q[r].to(dev)
+        k = _repeat_kv(ck.to(dev, q_l.dtype), groups)
+        v = _repeat_kv(cv.to(dev, q_l.dtype), groups)
+        qs = q_l * torch.tensor(scale, dtype=q_l.dtype, device=dev)
+        scores = torch.einsum("bchk,bshk->bhcs", qs.float(), k.float())
+        kv_pos = base + torch.arange(s_loc, device=dev)
+        mask = kv_pos <= pos
+        if w is not None:
+            mask &= kv_pos > pos - w
+        scores = torch.where(mask[None, None, None, :], scores, -1e30)
+        mx_l = torch.amax(scores, dim=-1)                  # (B, H, 1)
+        ex = torch.exp(scores - mx_l[..., None])
+        den_l = torch.sum(ex, dim=-1)
+        num_l = torch.einsum("bhcs,bshk->bchk", ex.to(q_l.dtype), v)
+        return mx_l, den_l, num_l
+
+    mx_l, den_l, num_l = coll.run(mesh, partial)
+    mx_g = coll.pmax(mesh, mx_l, "model")
+
+    def rescale(c, dev, mx, mx_all, den, num):
+        corr = torch.exp(mx - mx_all)                      # (B, H, 1)
+        return (num * torch.swapaxes(corr, 1, 2)[..., None].to(num.dtype),
+                den * corr)
+
+    num, den = coll.run(mesh, rescale, mx_l, mx_g, den_l, num_l)
+    num, den = coll.psum(mesh, num, "model"), coll.psum(mesh, den, "model")
+    o = coll.run(mesh, lambda c, dev, n, d: n / torch.swapaxes(d, 1, 2)[
+        ..., None].to(n.dtype), num, den)
+    # out: batch blocks over the data axes, replicated over `model`
+    o = torch.cat([o[c].to(x.device) for c in coll.coords(mesh)
+                   if coll.index_along(mesh, c, "model") == 0], dim=0)
+    o = o.reshape(b, 1, spec.n_heads, spec.head_dim)
+    wo = ctx.constrain(p.wo.to(o.dtype), ("model", None, None))
+    out = torch.einsum("bshk,hkd->bsd", o, wo)
     return out, cache_k, cache_v
 
 
@@ -298,10 +401,11 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    w_up = p.w_up.to(dt)
-    w_down = p.w_down.to(dt)
+    w_up = ctx.constrain(p.w_up.to(dt), (None, "model"))
+    w_down = ctx.constrain(p.w_down.to(dt), ("model", None))
     if hasattr(p, "w_gate"):  # SwiGLU
-        gate = F.silu(x @ p.w_gate.to(dt))
+        w_gate = ctx.constrain(p.w_gate.to(dt), (None, "model"))
+        gate = F.silu(x @ w_gate)
         return (gate * (x @ w_up)) @ w_down
     u = x @ w_up
     if tuning.get("act_bf16") and u.dtype == torch.bfloat16:
@@ -378,6 +482,7 @@ def chunked_xent(
         hidden = _ct_cast_bf16(hidden)
     b, s, _ = hidden.shape
     c, n = _chunks(s, tuning.get("xent_chunk"))
+    emb = ctx.constrain(emb, ("model", None))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n):
         part = checkpoint(_xent_chunk_sum, hidden[:, i * c:(i + 1) * c], emb,

@@ -13,8 +13,8 @@ The port's copy of the JAX package's ``models/model.py``.
     checking a model block by block (``moe``, ``ssm_hybrid`` and
     ``xlstm``; None for the others)
 
-The MoE family's ``hidden``, ``blocks``, ``decode`` and ``decode_blocks``
-also take ``routes=`` (a list each MoE layer call appends its
+The MoE family's ``prefill``, ``hidden``, ``blocks``, ``decode`` and
+``decode_blocks`` also take ``routes=`` (a list each MoE layer call appends its
 ``moe.Route`` to); the others refuse it.
 
 Batches are dicts of tensors on the model's device (``tokens``;
@@ -69,8 +69,8 @@ def build_model(cfg: ArchConfig, device: Device = "cuda") -> Model:
     module = _MODULES[cfg.family]
 
     @torch.no_grad()
-    def prefill(params, batch):
-        hidden = module.hidden(params, cfg, batch)
+    def prefill(params, batch, **kw):
+        hidden = module.hidden(params, cfg, batch, **kw)
         return transformer.logits_fn(params, cfg, hidden[:, -1])
 
     def bind(name: str) -> Optional[Callable]:

@@ -24,9 +24,14 @@ zero: the same buffer with no duplicate writes.
 The gradient agrees too: JAX's scatter passes no cotangent to an
 overwritten update, and the port never writes that pair.
 
-Not here: ``_moe_ffn_shardmap`` (the expert-parallel path over a mesh,
-ROADMAP item 11d, the only reader of the ``capacity_factor`` tuning
-knob).
+With an active mesh whose ``model`` axis divides the experts, ``moe_ffn``
+takes ``_moe_ffn_shardmap``, the reference's expert-parallel ``shard_map``
+written as stages between collectives (``parallel/collectives.py``): each
+data shard's tokens, 1/M of them a ``model`` peer, are dispatched into a
+local capacity buffer (no drop at small token counts; otherwise the
+``capacity_factor`` knob sets the capacity), exchanged with the experts'
+owners, and combined back.  Its dispatch has the same slot ``C - 1``
+clobber, so it reuses ``dispatch``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,8 @@ from torch import nn
 from .. import tuning
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
+from ..parallel import collectives as coll
+from ..parallel import ctx
 from .layers import (
     MLP, Attention, RMSNorm, _param, attention_decode, chunked_xent,
     dense_init_, mlp, rmsnorm,
@@ -135,7 +142,7 @@ def route(p: MoEFFN, cfg: ArchConfig, xf: torch.Tensor
     renormalized weights and expert ids (T, k), float32.  Ties go to the
     lower expert id, as ``lax.top_k`` breaks them (a stable descending
     sort; ``torch.topk`` keeps no order among equals)."""
-    logits = xf.float() @ p.router.float()
+    logits = xf.float() @ p.router.to(xf.device, torch.float32)
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
@@ -192,9 +199,24 @@ def _unsort(order: torch.Tensor, sorted_vals: torch.Tensor) -> torch.Tensor:
 def moe_ffn(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor,
             routes: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss): the JAX package's single-device
+    """x: (B, S, d) -> (out, aux_loss).
+
+    With an active mesh that has a ``model`` axis dividing the experts,
+    the expert-parallel ``_moe_ffn_shardmap``; otherwise the single-device
     dispatch (``_moe_ffn_local``).  With ``routes``, appends this call's
-    :class:`Route`."""
+    :class:`Route`s (one a shard on the mesh path)."""
+    mesh = ctx.current_mesh()
+    if (mesh is not None and "model" in mesh.axis_names
+            and cfg.n_experts % mesh.shape["model"] == 0):
+        return _moe_ffn_shardmap(p, cfg, x, mesh, routes)
+    return _moe_ffn_local(p, cfg, x, routes)
+
+
+def _moe_ffn_local(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor,
+                   routes: Optional[list] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's single-device dispatch: capacity ``capacity(cfg,
+    B * S)``, every expert on ``x``'s device."""
     b, s, d = x.shape
     t = b * s
     k = cfg.experts_per_token
@@ -219,22 +241,145 @@ def moe_ffn(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor,
         routes.append(Route(probs, topi, _unsort(
             order, torch.where(kept, se, -1)).reshape(t, k)))
     dt = xf.dtype
+    gathered = ctx.constrain(xf[tok], (ctx.DP, None))
     buf = torch.zeros((e, cap, d), dtype=dt, device=dev)
-    buf[se[kept], rank[kept]] = xf[tok[kept]]
+    buf[se[kept], rank[kept]] = gathered[kept]
+    # EP x DP: experts over `model`, capacity slots over the data axes
+    buf = ctx.constrain(buf, ("model", ctx.DP, None))
 
     # ---- expert SwiGLU over all E experts at capacity C
-    gate = F.silu(torch.einsum("ecd,edf->ecf", buf, p.w_gate.to(dt)))
-    up = torch.einsum("ecd,edf->ecf", buf, p.w_up.to(dt))
-    out_buf = torch.einsum("ecf,efd->ecd", gate * up, p.w_down.to(dt))
+    out_buf = ctx.constrain(_experts(p, buf, slice(None)),
+                            ("model", ctx.DP, None))
 
     # ---- return + combine (summed in the activation dtype, as JAX's
     # scatter-add)
     vals = out_buf[se, torch.clamp(rank, max=cap - 1)] * kept[:, None].to(dt)
+    vals = ctx.constrain(vals, (ctx.DP, None))
     contrib = torch.zeros((t, d), dtype=dt, device=dev).index_add_(
         0, tok, vals * topv.reshape(-1)[order, None].to(dt))
+    contrib = ctx.constrain(contrib, (ctx.DP, None))
     if hasattr(p, "shared"):
         contrib = contrib + mlp(p.shared, xf)
     return contrib.reshape(b, s, d), aux
+
+
+def _experts(p: MoEFFN, buf: torch.Tensor, experts: slice) -> torch.Tensor:
+    """SwiGLU of the ``experts`` slice over their capacity slots: buf (E',
+    C, d) -> (E', C, d), in ``buf``'s dtype and on its device."""
+    dt, dev = buf.dtype, buf.device
+    gate = F.silu(torch.einsum("ecd,edf->ecf", buf,
+                               p.w_gate[experts].to(dev, dt)))
+    up = torch.einsum("ecd,edf->ecf", buf, p.w_up[experts].to(dev, dt))
+    return torch.einsum("ecf,efd->ecd", gate * up,
+                        p.w_down[experts].to(dev, dt))
+
+
+def _moe_ffn_shardmap(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor, mesh,
+                      routes: Optional[list] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-pattern expert parallelism: the reference's ``shard_map``
+    as three stages between collectives.
+
+    Tokens are split over the data axes (``b_l = B / dp`` rows a shard)
+    and replicated over ``model``; experts are split over ``model`` (E/M a
+    peer).  When the shard's ``t_l`` tokens split evenly over the M peers,
+    each peer routes its own 1/M slice (``t_loc`` tokens); otherwise every
+    peer routes all of them.  Capacity is ``t_loc * k`` (nothing drops)
+    while that is at most 512, else ``ceil(t_loc * k / E * cf)`` rounded up
+    to a multiple of 8 (at least 8), ``cf`` the ``capacity_factor`` knob
+    or the config's.
+
+    1. dispatch (per coordinate): route, aux, the sort-dispatch into an
+       (E, C, d) buffer, viewed as (M, E/M, C, d);
+       ``pmean`` of aux over the data axes (and ``model`` when sliced),
+       ``all_to_all`` over ``model`` to the experts' owners;
+    2. experts (per coordinate): SwiGLU of the peer's E/M experts over the
+       M * C slots it received; the reverse ``all_to_all``;
+    3. combine (per coordinate): gather the pairs' outputs back, weight and
+       add them per token; ``all_gather`` over ``model`` when sliced.
+
+    The output is the data shards' rows (model peer 0's) on ``x``'s
+    device, plus the shared experts, run whole.  With ``routes``, appends
+    one :class:`Route` for each coordinate that routes its own tokens
+    (every peer when sliced, else model peer 0), in token order."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    m_sz = mesh.shape["model"]
+    e_l = e // m_sz
+    dp = ctx.dp_axes(mesh)
+    dp_sz = math.prod(mesh.shape[a] for a in dp)
+    if b % dp_sz:
+        raise ValueError(f"batch {b} does not split over the data axes "
+                         f"{dp} ({dp_sz} shards)")
+    b_l = b // dp_sz
+    t_l = b_l * s
+    slice_tokens = t_l % m_sz == 0 and t_l >= m_sz
+    t_loc = t_l // m_sz if slice_tokens else t_l
+    cf = tuning.get("capacity_factor") or cfg.capacity_factor
+    if t_loc * k <= 512:
+        cap = t_loc * k                     # decode: no-drop tiny buffer
+    else:
+        cap = int(math.ceil(t_loc * k / e * cf))
+        cap = max(8, -(-cap // 8) * 8)
+    dt = x.dtype
+
+    def dispatch_stage(c, dev):
+        r = coll.index_along(mesh, c, dp)
+        xf = x[r * b_l:(r + 1) * b_l].reshape(t_l, d).to(dev)
+        if slice_tokens:
+            m = coll.index_along(mesh, c, "model")
+            xf = xf[m * t_loc:(m + 1) * t_loc]
+        probs, topv, topi = route(p, cfg, xf)
+        me = probs.mean(dim=0)
+        ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+            0, topi.reshape(-1), torch.ones(t_loc * k, device=dev)) / (t_loc * k)
+        aux = e * torch.sum(me * ce)
+        order, se, rank, kept = dispatch(topi, cap, e)
+        tok = (torch.arange(t_loc * k, device=dev) // k)[order]
+        buf = torch.zeros((e, cap, d), dtype=dt, device=dev)
+        buf[se[kept], rank[kept]] = xf[tok[kept]]
+        return aux, buf.reshape(m_sz, e_l, cap, d), (probs, topv, topi,
+                                                     order, se, rank, kept, tok)
+
+    aux, buf, state = coll.run(mesh, dispatch_stage)
+    aux_axes = dp + (("model",) if slice_tokens else ())
+    if aux_axes:
+        aux = coll.pmean(mesh, aux, aux_axes)
+    buf = coll.all_to_all(mesh, buf, "model")        # block j -> peer j
+
+    def expert_stage(c, dev, buf):
+        m = coll.index_along(mesh, c, "model")
+        buf = buf.transpose(0, 1).reshape(e_l, m_sz * cap, d)
+        out = _experts(p, buf, slice(m * e_l, (m + 1) * e_l))
+        return out.reshape(e_l, m_sz, cap, d).transpose(0, 1)
+
+    out_buf = coll.all_to_all(mesh, coll.run(mesh, expert_stage, buf),
+                              "model")
+
+    def combine_stage(c, dev, out_buf, st):
+        _, topv, _, order, se, rank, kept, tok = st
+        out_buf = out_buf.reshape(e, cap, d)
+        vals = out_buf[se, torch.clamp(rank, max=cap - 1)] \
+            * kept[:, None].to(dt)
+        return torch.zeros((t_loc, d), dtype=dt, device=dev).index_add_(
+            0, tok, vals * topv.reshape(-1)[order, None].to(dt))
+
+    contrib = coll.run(mesh, combine_stage, out_buf, state)
+    if slice_tokens:  # rebuild the full data-row (replicated over model)
+        contrib = coll.all_gather(mesh, contrib, "model", dim=0)
+    lead = [c for c in coll.coords(mesh)
+            if coll.index_along(mesh, c, "model") == 0]
+    out = torch.cat([contrib[c].reshape(b_l, s, d).to(x.device)
+                     for c in lead], dim=0)
+    if routes is not None:
+        for c in coll.coords(mesh):
+            if slice_tokens or c in lead:
+                probs, _, topi, order, se, _, kept, _ = state[c]
+                routes.append(Route(probs, topi, _unsort(
+                    order, torch.where(kept, se, -1)).reshape(topi.shape)))
+    if hasattr(p, "shared"):
+        out = out + mlp(p.shared, x.reshape(b * s, d)).reshape(b, s, d)
+    return out, aux[lead[0]].to(x.device)
 
 
 def _layers(params: MoEParams) -> list:

@@ -34,6 +34,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
+from ..parallel import ctx
 from .layers import (
     MLP, Attention, RMSNorm, _chunks, _param, attention_decode, chunked_xent,
     dense_init_, mlp, rmsnorm, run_groups,
@@ -84,7 +85,7 @@ class Mamba(nn.Module):
 
 def _mamba_proj(p: Mamba, cfg: ArchConfig, x: torch.Tensor):
     d_in, nh, ns = mamba_dims(cfg)
-    zxbcdt = x @ p.w_in.to(x.dtype)
+    zxbcdt = x @ ctx.constrain(p.w_in.to(x.dtype), (None, "model"))
     xs, z, B, C, dtv = torch.split(zxbcdt, [d_in, d_in, ns, ns, nh], dim=-1)
     dtv = F.softplus(dtv.float() + p.dt_bias)          # (..., nh)
     return xs, z, B, C, dtv
@@ -169,7 +170,8 @@ def mamba_forward(p: Mamba, cfg: ArchConfig, x: torch.Tensor,
     y_inter = torch.einsum("bnis,bnhsp,bnih->bnihp",
                            C_c, h_in, torch.exp(seg).to(x.dtype))
     y = (y_intra.float() + y_inter.float()).reshape(b, s, nh, hp)
-    return _gated_out(p, x, y, xh, z) @ p.w_out.to(x.dtype)
+    w_out = ctx.constrain(p.w_out.to(x.dtype), ("model", None))
+    return _gated_out(p, x, y, xh, z) @ w_out
 
 
 def mamba_decode(p: Mamba, cfg: ArchConfig, x: torch.Tensor,
@@ -193,7 +195,8 @@ def mamba_decode(p: Mamba, cfg: ArchConfig, x: torch.Tensor,
              + upd.to(state.dtype))
     y = torch.einsum("bs,bhsp->bhp", C[:, 0], state.to(x.dtype))
     y = _gated_out(p, x, y[:, None], xh[:, None], z)
-    return y @ p.w_out.to(x.dtype), state, conv_state
+    w_out = ctx.constrain(p.w_out.to(x.dtype), ("model", None))
+    return y @ w_out, state, conv_state
 
 
 # --------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from torch import nn
 from .. import tuning
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
+from ..parallel import ctx
 from .layers import (
     MLP, Attention, AttnSpec, RMSNorm, _chunks, _param, _qkv, _repeat_kv,
     attention_decode, chunked_xent, dense_init_, mlp, rmsnorm,
@@ -112,7 +113,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
 def _embed(params: DenseParams, cfg: ArchConfig, tokens: torch.Tensor,
            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     # gather, then cast: the same values as JAX's cast of the whole table
-    x = params.embed[tokens].to(cfg.activation_dtype)
+    emb = ctx.constrain(params.embed, ("model", None))
+    x = emb[tokens].to(cfg.activation_dtype)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     if patch_embeds is not None and hasattr(params, "patch_proj"):
         proj = patch_embeds.to(x.dtype) @ params.patch_proj.to(x.dtype)
@@ -196,7 +198,8 @@ def _attention_dyn(p: Attention, spec: AttnSpec, x, positions, window: int):
                              positions[:, c * q_chunk:(c + 1) * q_chunk])
                    for c in range(n_chunks)], dim=1)
     o = o.reshape(b, s, spec.n_heads, spec.head_dim)
-    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(o.dtype))
+    wo = ctx.constrain(p.wo.to(o.dtype), ("model", None, None))
+    return torch.einsum("bshk,hkd->bsd", o, wo)
 
 
 def forward(params: DenseParams, cfg: ArchConfig, tokens: torch.Tensor,
@@ -226,7 +229,8 @@ def hidden(params: DenseParams, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 def logits_fn(params: DenseParams, cfg: ArchConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     emb = getattr(params, "unembed", params.embed)
-    return hidden @ emb.to(hidden.dtype).T
+    emb = ctx.constrain(emb.to(hidden.dtype), ("model", None))
+    return hidden @ emb.T
 
 
 def loss_fn(params: DenseParams, cfg: ArchConfig,

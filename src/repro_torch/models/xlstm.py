@@ -30,6 +30,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
+from ..parallel import ctx
 from .layers import (
     RMSNorm, _chunks, _param, chunked_xent, dense_init_, rmsnorm, run_groups,
 )
@@ -75,13 +76,19 @@ class MLSTM(nn.Module):
 
 def _mlstm_in(p: MLSTM, cfg: ArchConfig, x: torch.Tensor):
     """The block's projections: q, k (scaled by 1/sqrt(hd)), v, the output
-    gate, and the float32 input and forget gate pre-activations."""
+    gate, and the float32 input and forget gate pre-activations.  The
+    weights are constrained as the reference's ``mlstm_forward`` constrains
+    them; the decode step shares this function, so it names them too
+    (``ctx.constrain`` changes no value)."""
     d_up, nh, hd = _dims(cfg)
     lead = x.shape[:-1]
     h = rmsnorm(p.ln, x)
-    v, og = torch.chunk(h @ p.w_up.to(x.dtype), 2, dim=-1)
-    q = (h @ p.wq.to(x.dtype)).reshape(*lead, nh, hd)
-    k = (h @ p.wk.to(x.dtype)).reshape(*lead, nh, hd) / math.sqrt(hd)
+    v, og = torch.chunk(
+        h @ ctx.constrain(p.w_up.to(x.dtype), (None, "model")), 2, dim=-1)
+    q = (h @ ctx.constrain(p.wq.to(x.dtype), (None, "model"))).reshape(
+        *lead, nh, hd)
+    k = (h @ ctx.constrain(p.wk.to(x.dtype), (None, "model"))).reshape(
+        *lead, nh, hd) / math.sqrt(hd)
     v = v.reshape(*lead, nh, hd)
     ig, fg = torch.chunk((h @ p.w_if.to(x.dtype)).float(), 2, dim=-1)
     return q, k, v, og, ig, fg
@@ -93,7 +100,7 @@ def _mlstm_out(p: MLSTM, cfg: ArchConfig, x, y, og) -> torch.Tensor:
     ops does (rounding after each, as eager bfloat16 does, doubles the
     error against float32 over the 24 blocks of xlstm-350m)."""
     y = (rmsnorm(p.norm, y.float()) * F.silu(og.float())).to(x.dtype)
-    return x + y @ p.w_down.to(x.dtype)
+    return x + y @ ctx.constrain(p.w_down.to(x.dtype), ("model", None))
 
 
 def mlstm_forward(p: MLSTM, cfg: ArchConfig, x: torch.Tensor,

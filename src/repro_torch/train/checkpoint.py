@@ -19,7 +19,7 @@ A state tree is a dict of: a parameter module (``nn.Module``), an
 ``AdamWState``, or nested dicts / lists of tensors or numpy arrays.  Leaves
 are written as float32 (a bf16 optimizer state included: numpy has no
 bf16; restore casts back).  Restoring onto shardings (``shardings=``) is
-ROADMAP item 11d.
+ROADMAP item 11d (iii).
 """
 from __future__ import annotations
 
@@ -179,7 +179,8 @@ def restore(ckpt_dir: str, like: Dict[str, Any], step: Optional[int] = None,
     raises ``KeyError``, a misshapen one ``ValueError``."""
     if shardings is not None:
         raise NotImplementedError(
-            "restore onto shardings is not ported yet: ROADMAP item 11d")
+            "restore onto shardings is not ported yet: ROADMAP item 11d "
+            "(iii)")
     dev = resolve_device(device)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:

@@ -15,7 +15,7 @@ The loop is deliberately boring: all cleverness lives in the step function
 Checkpoints are the JAX package's layout (``train/checkpoint.py``), so a
 run may resume from the other package's.  A fresh run draws its weights
 with the port's ``model.init`` from ``seed`` (the JAX package's
-distributions, not its draws).  ``mesh=`` is ROADMAP item 11d.
+distributions, not its draws).  ``mesh=`` is ROADMAP item 11d (iii).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""The train step: loss -> grad -> AdamW, on one device.
+"""The train step (loss -> grad -> AdamW, on one device) and the serve
+steps over a mesh.
 
-The port's copy of the JAX package's ``train/step.py``, single-device
-part.  ``build_train_step(model, opt_cfg=...)`` returns ``(train_step,
+The port's copy of the JAX package's ``train/step.py``.
+``build_train_step(model, opt_cfg=...)`` returns ``(train_step,
 opt_cfg)``; ``train_step(params, opt_state, batch) -> (params, opt_state,
 metrics)`` updates the parameter module and the AdamW state in place and
 returns them with ``{"loss", "grad_norm", "lr"}`` (0-d float32 tensors
@@ -12,10 +13,15 @@ loss.
 
 Parameters are made with ``requires_grad=False`` (serving builds no
 graph); ``value_and_grad`` turns it on for its backward pass and off
-again.  A mesh, FSDP (with ``needs_fsdp``), and the serving steps with
-their shardings (``build_serve_prefill`` / ``build_serve_decode``) are
-ROADMAP item 11d; ``auto_microbatch``, whose only caller is the dry run,
-is item 11e.
+again.
+
+``build_serve_prefill`` / ``build_serve_decode`` return the serve steps
+over a mesh with their parameter (and cache) specs: each step enters
+``ctx.activation_mesh`` for the call, so the MoE dispatch and (with the
+``flash_decode`` knob) the decode attention run shard by shard, and every
+constraint is resolved against the mesh.  Training over a mesh and FSDP
+are ROADMAP item 11d (iii); ``auto_microbatch``, whose only caller is the
+dry run, is item 11e.
 """
 from __future__ import annotations
 
@@ -25,8 +31,10 @@ import torch
 from torch import nn
 
 from ..models.convert import PARAMS
-from ..models.model import Model
+from ..models.model import _MODULES, Model
 from ..optim import adamw
+from ..parallel import ctx
+from ..parallel.sharding import cache_pspecs, param_pspecs
 
 Batch = Dict[str, torch.Tensor]
 
@@ -34,7 +42,13 @@ Batch = Dict[str, torch.Tensor]
 def _no_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{what} over a mesh is not ported yet: ROADMAP item 11d")
+            f"{what} over a mesh is not ported yet: ROADMAP item 11d (iii)")
+
+
+def needs_fsdp(model: Model) -> bool:
+    """FSDP once params+optimizer at TP-only sharding would crowd HBM:
+    ~12 bytes/param over 16 TP shards > ~2 GiB/chip  =>  ~3B params."""
+    return model.cfg.param_count() > 3e9
 
 
 def abstract_params(model: Model) -> nn.Module:
@@ -72,11 +86,11 @@ def build_train_step(model: Model, mesh=None,
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
     ``fsdp=None`` means none on one device (JAX decides by its
-    ``needs_fsdp``); ``fsdp=True`` or a mesh raises (ROADMAP 11d)."""
+    ``needs_fsdp``); ``fsdp=True`` or a mesh raises (ROADMAP 11d (iii))."""
     _no_mesh(mesh, "build_train_step")
     if fsdp:
         raise NotImplementedError(
-            "FSDP is not ported yet: ROADMAP item 11d")
+            "FSDP is not ported yet: ROADMAP item 11d (iii)")
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         state_dtype="bfloat16" if model.cfg.param_count() > 2e11 else "float32")
 
@@ -107,3 +121,33 @@ def build_train_step(model: Model, mesh=None,
         return params, opt_state, {**metrics, "loss": loss}
 
     return train_step, opt_cfg
+
+
+def build_serve_prefill(model: Model, mesh):
+    """prefill(params, batch) -> last-token logits; returns (fn, p_specs).
+    Keywords go on to ``model.prefill`` (``routes=`` of the MoE family)."""
+    p_specs = param_pspecs(abstract_params(model), mesh,
+                           fsdp=needs_fsdp(model))
+
+    def prefill(params, batch, **kw):
+        with ctx.activation_mesh(mesh):
+            return model.prefill(params, batch, **kw)
+
+    return prefill, p_specs
+
+
+def build_serve_decode(model: Model, mesh, batch: int, max_seq: int):
+    """decode(params, cache, tokens, pos) -> (logits, cache); returns
+    (fn, p_specs, c_specs, cache_shapes), ``cache_shapes`` the cache's
+    tensors on the meta device.  Keywords go on to ``model.decode``."""
+    p_specs = param_pspecs(abstract_params(model), mesh,
+                           fsdp=needs_fsdp(model))
+    cache_abs = _MODULES[model.cfg.family].init_cache(
+        model.cfg, batch, max_seq, device="meta")
+    c_specs = cache_pspecs(cache_abs, mesh)
+
+    def decode(params, cache, tokens, pos, **kw):
+        with ctx.activation_mesh(mesh):
+            return model.decode(params, cache, tokens, pos, **kw)
+
+    return decode, p_specs, c_specs, cache_abs

@@ -2,13 +2,14 @@
 
 The port's copy of the JAX package's knob registry, holding the knobs that
 the port reads: ``q_chunk`` (attention query-block size),
-``scores_dtype``, ``gqa_native`` and ``act_bf16`` (serving), and
-``xent_chunk``, ``remat`` and ``grad_bf16`` (training),
-with the JAX package's defaults (the paper-faithful baseline), plus
-``get``, ``overrides``, ``parse`` and ``remat_wrap``.  The JAX package's
-other knobs are read by code the port does not have yet; naming one raises
-``NotImplementedError`` with the ROADMAP item that brings it, so a setting
-never silently does nothing.
+``scores_dtype``, ``gqa_native`` and ``act_bf16`` (serving), ``xent_chunk``,
+``remat`` and ``grad_bf16`` (training), and ``capacity_factor`` and
+``flash_decode`` (the mesh paths), with the JAX package's defaults (the
+paper-faithful baseline), plus ``get``, ``overrides``, ``parse`` and
+``remat_wrap``.  The JAX package's other knobs, ``micro_tokens`` and
+``seq_shard_mlp``, would change nothing the port does yet; naming one
+raises ``NotImplementedError`` with the ROADMAP item that gives it an
+effect, so a setting never silently does nothing.
 """
 from __future__ import annotations
 
@@ -27,15 +28,17 @@ _DEFAULTS: Dict[str, Any] = {
     "gqa_native": False,     # score einsum against Kv heads (no K/V repeat)
     "act_bf16": False,       # norms/gelu: f32 statistics, bf16 application
     "grad_bf16": False,      # cast the loss cotangent to bf16 at the xent boundary
+    "flash_decode": False,   # per-shard partial-softmax decode attention
+    "capacity_factor": 0.0,  # >0 overrides the sharded MoE capacity factor
 }
 
 # The JAX package's knobs that the port does not read yet, each with the
 # ROADMAP item that ports its reader.
 _UNPORTED: Dict[str, str] = {
-    "capacity_factor": "11d",  # parallel/: the sharded MoE dispatch
-    "seq_shard_mlp": "11d",    # parallel/: sequence-parallel MLP
-    "flash_decode": "11d",     # parallel/: flash decode over shards
     "micro_tokens": "11e",     # launch/dryrun.py: auto_microbatch's target
+    # its readers constrain the residual stream, which changes nothing on
+    # a one-process mesh: it needs constraints that place tensors
+    "seq_shard_mlp": "11f",
 }
 
 
@@ -128,6 +131,8 @@ def parse(spec: str) -> Dict[str, Any]:
             out[k] = v.strip().lower() in ("1", "true", "on")
         elif isinstance(proto, int):
             out[k] = int(v)
+        elif isinstance(proto, float):
+            out[k] = float(v)
         else:
             out[k] = v.strip()
     return out

@@ -30,6 +30,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.configs.base import ArchConfig as JaxArchConfig
 from repro.models.model import build_model as jax_build_model
+from repro.parallel import ctx as jax_ctx
 from repro.serve.constrain import ConstraintSet as JaxConstraintSet
 from repro.serve.engine import DecodeServer as JaxDecodeServer
 from repro.serve.engine import Request as JaxRequest
@@ -38,6 +39,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.models.model import build_model
+from repro_torch.parallel import ctx
 from repro_torch.serve.constrain import ConstraintSet
 from repro_torch.serve.engine import DecodeServer, Request
 
@@ -300,3 +302,89 @@ def assert_constrained_serving(pair: Pair):
     assert all(len(o) == 6 for o in out)
     assert set(out[0]) <= set(range(120, 400))
     return srv, jsrv
+
+
+# ------------------------------------------------------ sharding constraints
+
+def jax_constrain_sites(fn) -> set:
+    """The (shape, resolved spec) pairs the JAX package's
+    ``ctx.constrain`` hands to ``with_sharding_constraint`` while ``fn()``
+    runs (each call returns its input instead)."""
+    sites = set()
+    real = jax.lax.with_sharding_constraint
+
+    def spy(x, sharding):
+        sites.add((tuple(x.shape), tuple(sharding.spec)))
+        return x
+    jax.lax.with_sharding_constraint = spy
+    try:
+        fn()
+    finally:
+        jax.lax.with_sharding_constraint = real
+    return sites
+
+
+def port_constrain_sites(fn) -> set:
+    """The (shape, resolved spec) pairs the port's ``ctx.constrain``
+    resolves while ``fn()`` runs."""
+    sites = set()
+    real = ctx.resolve
+
+    def spy(shape, spec, mesh):
+        out = real(shape, spec, mesh)
+        sites.add((tuple(shape), tuple(out)))
+        return out
+    ctx.resolve = spy
+    try:
+        fn()
+    finally:
+        ctx.resolve = real
+    return sites
+
+
+def cpu_mesh(shape, distinct: bool = False):
+    """The port's ``(data, model)`` mesh of ``shape`` over logical CPU
+    devices: ``"cpu"`` repeated, or ``cpu:0``, ``cpu:1``, ... (distinct
+    devices: a move between two of them copies)."""
+    from repro_torch.core.engine import make_mesh2d
+
+    n = shape[0] * shape[1]
+    devices = [torch.device("cpu", i) for i in range(n)] if distinct \
+        else ["cpu"] * n
+    return make_mesh2d(shape[0], shape[1], data_axis="data",
+                       shard_axis="model", devices=devices)
+
+
+def constrain_sites_both(arch, mesh_shape, step):
+    """Every (shape, resolved spec) of one prefill (B 2 x S 8) or decode
+    step (B 2, cache 8) of ``arch``'s smoke config under a ``(data,
+    model)`` mesh of ``mesh_shape``: (JAX's, the port's).  JAX traces
+    (``eval_shape``) on an ``AbstractMesh``; the port runs."""
+    jcfg = jax_smoke_config(jax_get_config(arch))
+    jmodel = jax_build_model(jcfg)
+    jp = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    cfg = smoke_config(get_config(arch))
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    jb, tb = batches(cfg, 2, 8)
+    jmesh = jax.sharding.AbstractMesh(mesh_shape, ("data", "model"))
+    mesh = cpu_mesh(mesh_shape)
+
+    def jax_run():
+        if step == "prefill":
+            jax.eval_shape(jmodel.prefill, jp, jb)
+        else:
+            jax.eval_shape(jmodel.decode, jp, jmodel.init_cache(2, 8),
+                           jb["tokens"][:, :1], jnp.int32(3))
+
+    def port_run():
+        if step == "prefill":
+            model.prefill(params, tb)
+        else:
+            model.decode(params, model.init_cache(2, 8), tb["tokens"][:, :1], 3)
+
+    with jax_ctx.activation_mesh(jmesh):
+        want = jax_constrain_sites(jax_run)
+    with ctx.activation_mesh(mesh):
+        got = port_constrain_sites(port_run)
+    return want, got

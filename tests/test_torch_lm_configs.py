@@ -83,7 +83,8 @@ def test_tuning_registry_matches_jax():
     "", "baseline", "q_chunk=1024;scores_dtype=bf16",
     "gqa_native=on;act_bf16=1;scores_dtype=f32", "act_bf16=false",
     " q_chunk = 64 ; gqa_native=true",
-    "xent_chunk=128;remat=dots;grad_bf16=on"])
+    "xent_chunk=128;remat=dots;grad_bf16=on",
+    "capacity_factor=1.5;q_chunk=8"])
 def test_tuning_parse_matches_jax(spec):
     assert tuning.parse(spec) == jax_tuning.parse(spec)
 
@@ -93,8 +94,9 @@ def test_tuning_parse_matches_jax(spec):
 def test_tuning_unported_knobs_raise(name):
     """A JAX knob whose reader the port lacks is refused, not ignored."""
     item = tuning._UNPORTED[name]
-    # micro_tokens' only reader is auto_microbatch, called by the dry run
-    assert item == ("11e" if name == "micro_tokens" else "11d")
+    # micro_tokens' only reader is auto_microbatch, called by the dry run;
+    # seq_shard_mlp's readers constrain, which places nothing on one process
+    assert item == {"micro_tokens": "11e", "seq_shard_mlp": "11f"}[name]
     spec = f"{name}={jax_tuning._DEFAULTS[name]}"
     jax_tuning.parse(spec)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
@@ -186,8 +188,8 @@ def test_remat_wrap_follows_the_knob():
 
 
 def test_mesh_and_fsdp_are_refused():
-    """Training over a mesh or with FSDP is ROADMAP item 11d: refused, not
-    ignored."""
+    """Training over a mesh or with FSDP is ROADMAP item 11d (iii):
+    refused, not ignored (serving over a mesh is ported)."""
     from repro_torch.models.model import build_model
     from repro_torch.train import checkpoint, loop, step
 
@@ -199,11 +201,12 @@ def test_mesh_and_fsdp_are_refused():
                                     mesh=object()),
                  lambda: checkpoint.restore("/nonexistent", {},
                                             shardings={})):
-        with pytest.raises(NotImplementedError, match="11d"):
+        with pytest.raises(NotImplementedError, match=r"11d \(iii\)"):
             call()
-    # fsdp=None on one device is no FSDP, whatever JAX's needs_fsdp says
+    # fsdp=None on one device is no FSDP, whatever needs_fsdp says (the
+    # serve builders read it for their specs)
     assert callable(step.build_train_step(model, fsdp=None)[0])
-    assert not hasattr(step, "needs_fsdp")       # 11d, with FSDP
+    assert not step.needs_fsdp(model)
     assert not hasattr(step, "auto_microbatch")  # 11e, with the dry run
 
 

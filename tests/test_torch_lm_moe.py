@@ -269,27 +269,6 @@ def test_top_k_ties_go_to_the_lower_expert():
     assert (topi[:, 0] < 4).all() and (topi[:, 1] == topi[:, 0] + 4).all()
 
 
-def test_capacity_factor_knob_is_refused_until_the_sharded_dispatch():
-    """The JAX package reads ``capacity_factor`` only in its sharded
-    dispatch (ROADMAP item 11d), so the port refuses the knob; JAX's
-    single-device output with it set is the port's at the config's
-    factor."""
-    spec = "capacity_factor=0.5"
-    assert jax_tuning.parse(spec) == {"capacity_factor": 0.5}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11d"):
-        tuning.parse(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11d"):
-        with tuning.overrides(capacity_factor=0.5):
-            pass
-    jcfg, jp, cfg, p = ffn_pair()
-    x = np.random.default_rng(5).standard_normal((2, 32, cfg.d_model))
-    x = x.astype(np.float32)
-    out, _ = moe.moe_ffn(p, cfg, torch.from_numpy(x))
-    with jax_tuning.overrides(capacity_factor=0.5):
-        jout, _ = jax_moe.moe_ffn(layer0(jp)["moe"], jcfg, jnp.asarray(x))
-    assert_close(out, jout, FP32_TOL)
-
-
 def test_decode_capacity_never_drops():
     """A decode batch of B <= 8 tokens fits: the capacity is at least 8
     and a token picks an expert at most once."""
