@@ -227,7 +227,7 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    differ from float32 are counted, and only if some row
                    fails are the rows whose applied experts differ left
                    out, their largest error printed;
-               15b ``DecodeServer(batch_slots=4, max_seq=64)`` on 4 seeded
+               15b ``DecodeServer(batch_slots=4, max_seq=64)`` on 2 seeded
                    requests (prompts log-uniform in 8-32, ``max_new``
                    8-16), half constrained by phase 14's three masks
                    scaled to the vocabulary: every constrained token in
@@ -300,6 +300,39 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    experts differ left out only if some row fails, as
                    15a), each route's dropped pairs printed; the three
                    kernels' launches, 0, print apart.
+ 18. LM training over a mesh — logical shards on the card, through
+               ``build_train_step(mesh=, fsdp=, microbatch=)``,
+               ``train(mesh=)``, ``restore(shardings=)`` and
+               ``elastic.remesh``, fp32 weights from seed 0 and bf16
+               activations:
+               18a qwen3-1.7b unreduced, B 4 x S 512: one step over (2,
+                   2) at microbatch 2, FSDP off and on, against the
+                   single-device step (loss, grad norm and every updated
+                   parameter within what two single-device steps differ
+                   by, at least 1e-6 relative), and FSDP on against off;
+               18b deepseek-moe-16b at its widths, 4 of its 28 layers, B 4
+                   x S 512, on (1, 4) and (2, 2): a bf16 first step's loss
+                   against float32 on the same mesh (1%), each bf16
+                   block's backward fed the float32 stream and cotangent
+                   (as 16d), each float32 MoE layer's backward through the
+                   sharded stages against the single-device dispatch on
+                   each shard's token slice (applied experts equal; input
+                   cotangent and router, expert and shared-expert weight
+                   gradients within ``MESH_MOE_LOCAL_TOL``); then the step
+                   over (2, 2) beside the single-device step (CUDA events
+                   in turns), launches a step, peak memory; the
+                   sharded stages run 2 times a MoE layer a step, and
+                   the first sharded loss is (i)'s within 1e-4;
+               18c elastic resume at the smoke configs (dense and MoE): 3
+                   steps over (2, 2) through ``train``, a checkpoint,
+                   ``remesh`` onto (1, 4) (state restored bit for bit), 3
+                   more, against the run kept in memory (dense
+                   bit-identical, MoE within 1e-6 relative);
+               18d the four ``examples/*_torch.py`` at their default sizes
+                   (``serve_search_torch`` in its plain mode, on the
+                   card, ``train_lm_torch --steps 40``), timed, each reaching its own check; the
+                   launches of ``quickstart_torch`` and
+                   ``serve_search_torch`` join the kernel table's paths.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -315,8 +348,9 @@ expressions`` and ``async 10b expressions``, ``11a sharded query_batch``,
 suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
 baselines excluded), ``async 12b virtual 0.5x`` / ``1.5x``, ``async 12c
 metrics`` / ``traced`` (the first run of each), ``async 12c traced low``
-and ``12e traced suggest_batch``; 13a's and 14's-17's counts, 0 for
-every kernel, print apart.  The
+and ``12e traced suggest_batch``, ``18d quickstart_torch`` and ``18d
+serve_search_torch``; 13a's, 14's-17's and 18a-18c's counts, 0 for every
+kernel, print apart.  The
 last lines are the kernel table as JSON (each kernel's ``launches`` on
 its main path, phase 4 or 7, and ``launches_by_path``) and ``{"ok": true,
 "device": {...}}``.  ``--report``
@@ -430,7 +464,8 @@ LM_SLOTS, LM_MAX_SEQ = 4, 512        # 14b: DecodeServer
 # on a slow host (the run that added phase 16 took 1082.6 s, 14b 153 s and
 # 15 304 s of it; the one that added phase 17 794.6 s, 14b 83.7 s): 6
 # requests here (was 16, then 8), still more than the slots, with prompts
-# of 8-64 (was 8-128) and max_new 8-32 (was 16-64); 4 in 15b (was 8), 64
+# of 8-64 (was 8-128) and max_new 8-32 (was 16-64); 2 in 15b (was 8,
+# then 4: phase 18 adds about 50 s to a script that took 742-795 s), 64
 # positions in 15a (was 128)
 LM_REQUESTS = 6                      # half of them constrained
 LM_PROMPT_RANGE = (8, 64)            # log-uniform prompt lengths
@@ -447,9 +482,9 @@ LM_PROFILED_STEPS = 1                # 14c: decode steps under the profiler
 # everything before it is freed
 FAM_ARCHS = ("whisper-base", "xlstm-350m", "zamba2-2.7b", "deepseek-moe-16b")
 FAM_PROMPTS, FAM_PROMPT_LEN = 4, 64      # 15a: seeded prompts, every position
-FAM_REQUESTS = 4                         # 15b: half of them constrained
-FAM_PROMPT_RANGE = (8, 32)               # log-uniform prompt lengths
-FAM_MAX_NEW_RANGE = (8, 16)              # uniform max_new
+FAM_REQUESTS = 4                         # 15b: half of them constrained,
+FAM_PROMPT_RANGE = (4, 16)               # one to a slot; log-uniform prompt
+FAM_MAX_NEW_RANGE = (4, 8)               # lengths, uniform max_new
 FAM_SLOTS, FAM_MAX_SEQ = 4, 64           # 15b: DecodeServer
 FAM_STEP_DEPTH = 128                     # 15c: decode step, B 4, depth 128
 FAM_PREFILL_LEN = 512                    # 15c: prefill B 4 x S 512 (whisper:
@@ -544,6 +579,30 @@ MESH_MOE_LOCAL_TOL = 1e-4
 # of whole decode steps are held to LM_TOL, as phase 14 holds decode
 # against prefill: two bf16 evaluations of one function.
 MESH_ATTN_TOL = 0.02
+
+# -- LM training over a mesh (phase 18) ----------------------------------------
+# 18a: qwen3-1.7b unreduced, one bf16 step at microbatch 2 over (2, 2),
+# FSDP off and on, against the single-device step.  A dense model has no
+# sharded stage on one process, so the bound is what two runs of the
+# single-device step differ by (index_add_'s atomics and the order of a
+# threaded sum may differ between runs), at least MESH_TRAIN_FLOOR
+# (relative): then it also holds when they agree exactly
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_TRAIN_MICRO = 2
+MESH_TRAIN_FLOOR = 1e-6
+# 18b: deepseek at MESH_MOE_LAYERS layers on MESH_MOE_SHAPES; (iii) times
+# the sharded step on MESH_TRAIN_TIMED against the single-device one, and
+# holds its first loss to (i)'s bf16 loss on the same weights and batch
+# (relative; the combine stage's bf16 index_add_ adds in no fixed order)
+MESH_TRAIN_TIMED = (2, 2)
+MESH_STEP_LOSS_TOL = 1e-4
+# 18c: 3 steps on the first mesh, a checkpoint, remesh onto the second, 3
+# more (TRAIN_RESUME), against the run kept in memory
+MESH_TRAIN_RESUME = ((2, 2), (1, 4))
+# 18d: the examples' twins at their default sizes (train_lm_torch at 40
+# steps); serve_search_torch's plain mode serves through the device
+# engine, so its passes launch the kernels
+EXAMPLE_TRAIN_STEPS = 40
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -4216,7 +4275,8 @@ def micro_hold(torch, model, params, batch) -> float:
     ms = []
     with no_tf32(torch):
         for micro in (1, 2):
-            fn, _ = build_train_step(model32, opt_cfg=opt, microbatch=micro)
+            fn, _, _ = build_train_step(model32, opt_cfg=opt,
+                                        microbatch=micro)
             _, state, _ = fn(params, adamw.init(opt, params), batch)
             ms.append(state.m)
             del state
@@ -4270,7 +4330,7 @@ def run_training_16a(torch, report) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     opt = adamw.AdamWConfig(**TRAIN_OPT)
-    step_fn, _ = build_train_step(model, opt_cfg=opt)
+    step_fn, _, _ = build_train_step(model, opt_cfg=opt)
     state = adamw.init(opt, params)
     params, state, losses, ms = timed_steps(
         torch, step_fn, params, state, cfg, range(TRAIN_STEPS), model.device)
@@ -4415,7 +4475,7 @@ def run_training_16d(torch, cfg, report) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     opt = adamw.AdamWConfig(**TRAIN_OPT)
-    step_fn, _ = build_train_step(model, opt_cfg=opt)
+    step_fn, _, _ = build_train_step(model, opt_cfg=opt)
     state = adamw.init(opt, params)
     params, state, losses, ms = timed_steps(
         torch, step_fn, params, state, cfg, range(TRAIN_FAM_STEPS),
@@ -4916,6 +4976,513 @@ def run_mesh_serving(torch, report) -> dict:
     return launches
 
 
+# -- phase 18: LM training over a mesh -----------------------------------------
+
+def mesh_of(shape, device):
+    """A ``(data, model)`` mesh of ``shape``, every shard on ``device``."""
+    from repro_torch.core.engine import make_mesh2d
+
+    return make_mesh2d(shape[0], shape[1], data_axis="data",
+                       shard_axis="model",
+                       devices=[device] * (shape[0] * shape[1]))
+
+
+def one_step(torch, fn, p0, opt, batch):
+    """One step of ``fn`` from a copy of ``p0`` and a fresh AdamW state:
+    (loss, grad norm, updated params)."""
+    import copy
+
+    from repro_torch.optim import adamw
+
+    params = copy.deepcopy(p0)
+    state = adamw.init(opt, params)
+    params, state, m = fn(params, state, batch)
+    out = (float(m["loss"]), float(m["grad_norm"]), params)
+    del state, m
+    return out
+
+
+def step_diff(torch, a, b) -> float:
+    """The largest relative difference of two ``one_step`` results: loss,
+    grad norm, and each updated parameter's largest difference over its
+    largest magnitude."""
+    diff = max(abs(a[0] - b[0]) / abs(b[0]), abs(a[1] - b[1]) / abs(b[1]))
+    ref = dict(b[2].named_parameters())
+    for n, x in a[2].named_parameters():
+        y = ref[n]
+        diff = max(diff, float((x - y).abs().max()
+                               / y.abs().max().clamp_min(1e-30)))
+    return diff
+
+
+def run_mesh_train_dense(torch, out) -> None:
+    """18a: qwen3-1.7b unreduced, one bf16 step over ``MESH_TRAIN_SHAPE``
+    at ``MESH_TRAIN_MICRO`` against the single-device step (see
+    ``run_mesh_training``)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    p0 = model.init(gen)
+    batch = train_batch(torch, cfg, 0, dev)
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    mesh = mesh_of(MESH_TRAIN_SHAPE, dev)
+    single = build_train_step(model, opt_cfg=opt,
+                              microbatch=MESH_TRAIN_MICRO)[0]
+    torch.cuda.reset_peak_memory_stats()
+    ref = one_step(torch, single, p0, opt, batch)
+    again = one_step(torch, single, p0, opt, batch)
+    noise = step_diff(torch, again, ref)
+    del again
+    bound = max(noise, MESH_TRAIN_FLOOR)
+    res = {"single_vs_single": noise, "bound": bound}
+    runs = {}
+    for fsdp in (False, True):
+        fn, (p_specs, _), _ = build_train_step(
+            model, mesh, opt_cfg=opt, fsdp=fsdp, microbatch=MESH_TRAIN_MICRO)
+        runs[fsdp] = one_step(torch, fn, p0, opt, batch)
+        res[f"fsdp_{fsdp}_vs_single"] = step_diff(torch, runs[fsdp], ref)
+        res[f"fsdp_{fsdp}_sharded_dims"] = sum(
+            a is not None for sp in p_specs.values() for a in sp)
+        require(res[f"fsdp_{fsdp}_vs_single"] <= bound,
+                f"18a: the step over {MESH_TRAIN_SHAPE} (fsdp {fsdp}) vs "
+                f"the single-device step {res[f'fsdp_{fsdp}_vs_single']} > "
+                f"{bound}")
+    res["fsdp_on_vs_off"] = step_diff(torch, runs[True], runs[False])
+    require(res["fsdp_on_vs_off"] <= bound,
+            f"18a: FSDP on vs off {res['fsdp_on_vs_off']} > {bound}")
+    require(math.isfinite(ref[0]) and math.isfinite(ref[1]),
+            f"18a: loss {ref[0]}, grad norm {ref[1]}")
+    res.update(loss=ref[0], grad_norm=ref[1],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    out["18a"] = res
+    print(f"phase 18a {cfg.name} unreduced, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, bf16, microbatch {MESH_TRAIN_MICRO}: one step over "
+          f"{MESH_TRAIN_SHAPE} against the single-device step: loss "
+          f"{ref[0]:.6f}, grad norm {ref[1]:.5f}; two single-device steps "
+          f"differ by {noise:.3e} (bound {bound:.1e}); FSDP off "
+          f"{res['fsdp_False_vs_single']:.3e}, FSDP on "
+          f"{res['fsdp_True_vs_single']:.3e} (sharded dimensions in the "
+          f"specs: {res['fsdp_False_sharded_dims']} off, "
+          f"{res['fsdp_True_sharded_dims']} on), FSDP on vs off {res['fsdp_on_vs_off']:.3e}; peak device "
+          f"memory {res['peak_bytes']} bytes")
+    del ref, runs, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_grads_vs_local_slices(torch, moe, calls, mesh, t_loc: int,
+                              aux_ct: float) -> dict:
+    """18b (ii): each recorded float32 MoE layer's backward through the
+    sharded stages (``_moe_ffn_shardmap`` under a seeded random cotangent
+    of its output and ``aux_ct`` of its aux loss) against the single-device
+    dispatch (``_moe_ffn_local``) run on each ``t_loc``-token slice that a
+    shard routes, at the same capacity, the slices' aux losses averaged as
+    the sharded ``pmean`` does.  The applied experts must be equal, and the
+    input cotangent and the router, expert and shared-expert weight
+    gradients (summed over the slices) within ``MESH_MOE_LOCAL_TOL``
+    relative L2.  TF32 off."""
+    worst = {"dx": 0.0, "router": 0.0, "experts": 0.0, "shared": 0.0}
+    gen = torch.Generator(device=calls[0][2].device)
+    gen.manual_seed(SEED + 18)
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+
+    with no_tf32(torch), torch.enable_grad():
+        for i, (p, cfg, x, _, _, _) in enumerate(calls):
+            named = [(n, w) for n, w in p.named_parameters()]
+            ws = [w for _, w in named]
+            for w in ws:
+                w.requires_grad_(True)
+            try:
+                d = x.shape[-1]
+                ct = torch.randn(x.shape, generator=gen, device=x.device)
+                xs = x.detach().clone().requires_grad_(True)
+                r_sh = []
+                o, a = moe._moe_ffn_shardmap(p, cfg, xs, mesh, r_sh)
+                g_sh = torch.autograd.grad((o * ct).sum() + aux_ct * a,
+                                           [xs] + ws)
+                del o, a
+                xl = x.detach().reshape(-1, d).clone().requires_grad_(True)
+                ctf = ct.reshape(-1, d)
+                require(xl.shape[0] == t_loc * len(r_sh),
+                        f"18b: MoE layer {i}: {len(r_sh)} routes of {t_loc} "
+                        f"tokens for {xl.shape[0]} tokens")
+                total = 0.0
+                for j, r_j in enumerate(r_sh):
+                    sl = slice(j * t_loc, (j + 1) * t_loc)
+                    r = []
+                    o_j, a_j = moe._moe_ffn_local(p, cfg, xl[sl][None], r)
+                    require(torch.equal(r[0].applied, r_j.applied),
+                            f"18b: MoE layer {i} slice {j}: the sharded "
+                            f"route's applied experts differ from the "
+                            f"single-device dispatch's")
+                    total = total + (o_j[0] * ctf[sl]).sum() \
+                        + aux_ct * a_j / len(r_sh)
+                g_loc = torch.autograd.grad(total, [xl] + ws)
+            finally:
+                for w in ws:
+                    w.requires_grad_(False)
+            worst["dx"] = max(worst["dx"], rel(g_sh[0].reshape(-1, d),
+                                               g_loc[0]))
+            for (n, _), a_g, b_g in zip(named, g_sh[1:], g_loc[1:]):
+                group = ("router" if n == "router" else "shared"
+                         if n.startswith("shared") else "experts")
+                worst[group] = max(worst[group], rel(a_g, b_g))
+            del g_sh, g_loc
+    for k, v in worst.items():
+        require(v <= MESH_MOE_LOCAL_TOL,
+                f"18b: sharded MoE backward vs single-device slices: {k} "
+                f"{v} > {MESH_MOE_LOCAL_TOL}")
+    return {"layers": len(calls), **worst}
+
+
+def run_mesh_train_moe(torch, out) -> None:
+    """18b: deepseek-moe-16b at its widths, ``MESH_MOE_LAYERS`` layers,
+    B 4 x S 512, on ``MESH_MOE_SHAPES`` (see ``run_mesh_training``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ctx
+    from repro_torch.train.step import build_train_step
+
+    full = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS)
+    model = build_model(cfg)
+    dev = model.device
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                          device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = train_batch(torch, cfg, 0, dev)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    aux_ct = 0.01 / cfg.n_layers
+    rows = []
+    for shape in MESH_MOE_SHAPES:
+        mesh = mesh_of(shape, dev)
+        t = time.perf_counter()
+        # (i) bf16 against float32 over the mesh: the loss, then each
+        # block's backward fed the float32 stream and cotangent
+        with ctx.activation_mesh(mesh), \
+                counted_calls(moe, "_moe_ffn_shardmap") as calls:
+            hold = hold_first_step(torch, model, params, batch, False)
+            blocks = grad_blocks(torch, model, model32, params, batch)
+        # forward and remat recomputation, bf16 and float32, for every MoE
+        # layer; then grad_blocks' float32 and bf16 block of each
+        require(len(calls) == 6 * n_moe, f"18b {shape}: the sharded MoE "
+                f"ran {len(calls)} times, not {6 * n_moe}")
+        # (ii) each float32 MoE layer's backward against the slices
+        t_loc = TRAIN_BATCH // shape[0] * TRAIN_SEQ // shape[1]
+        with ctx.activation_mesh(mesh), no_tf32(torch), torch.no_grad(), \
+                recorded_moe_calls(moe) as rec:
+            moe.forward(params, model32.cfg, batch["tokens"], routes=[])
+        vs_local = moe_grads_vs_local_slices(torch, moe, rec, mesh, t_loc,
+                                             aux_ct)
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows.append({"shape": shape, "hold": hold, "grad_blocks": blocks,
+                     "vs_local": vs_local, "s": time.perf_counter() - t})
+        print(f"phase 18b {cfg.name} ({cfg.n_layers} of {full.n_layers} "
+              f"layers, {n_params} parameters) on a {shape} mesh, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}: bf16 vs float32 (TF32 off) loss "
+              f"{hold['loss']:.5f} vs {hold['loss_f32']:.5f} (relative "
+              f"{hold['loss_err']:.2e}, tolerance {TRAIN_LOSS_TOL}), grad "
+              f"norm relative {hold['grad_norm_err']:.2e}, least cosine "
+              f"{hold['min_cosine']:.5f} ({hold['min_cosine_param']}); each "
+              f"bf16 block's backward fed the float32 stream and cotangent, "
+              f"{blocks['blocks']} blocks: least gradient cosine "
+              f"{blocks['min_cosine']:.5f} ({blocks['min_cosine_at']}; bound "
+              f"{TRAIN_BLOCK_COSINE}), largest input cotangent error "
+              f"{blocks['dx_err']:.2e} (bound {TRAIN_BLOCK_DX}); float32 MoE "
+              f"backward vs single-device slices of {t_loc} tokens, "
+              f"{vs_local['layers']} layers: input cotangent "
+              f"{vs_local['dx']:.2e}, router {vs_local['router']:.2e}, "
+              f"experts {vs_local['experts']:.2e}, shared experts "
+              f"{vs_local['shared']:.2e} (bound {MESH_MOE_LOCAL_TOL}), "
+              f"applied experts equal; {rows[-1]['s']:.1f} s")
+    # (iii) the sharded step beside the single-device one, in turns; the
+    # sharded step goes first, so its first step is (i)'s loss on the same
+    # weights and batch, through the step's own mesh context
+    mesh = mesh_of(MESH_TRAIN_TIMED, dev)
+    held = next(r["hold"]["loss"] for r in rows
+                if r["shape"] == MESH_TRAIN_TIMED)
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    fns = {"sharded": build_train_step(model, mesh, opt_cfg=opt)[0],
+           "single": build_train_step(model, opt_cfg=opt)[0]}
+    # the MoE layers' sharded stages a step: forward and remat's
+    # recomputation under the step's mesh; none on one device
+    want_calls = {"sharded": 2 * n_moe, "single": 0}
+    state = adamw.init(opt, params)
+    ms = {k: [] for k in fns}
+    losses = {k: [] for k in fns}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        step_batch = train_batch(torch, cfg, i, dev)
+        for name, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            with counted_calls(moe, "_moe_ffn_shardmap") as calls:
+                start.record()
+                params, state, m = fn(params, state, step_batch)
+                end.record()
+            require(len(calls) == want_calls[name], f"18b (iii) {name} step "
+                    f"{i}: the sharded MoE ran {len(calls)} times, not "
+                    f"{want_calls[name]}")
+            losses[name].append(m["loss"].item())
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for v in losses.values() for x in v),
+            f"18b: losses {losses}")
+    step_err = abs(losses["sharded"][0] - held) / abs(held)
+    require(step_err <= MESH_STEP_LOSS_TOL, f"18b (iii): the sharded step's "
+            f"first loss {losses['sharded'][0]} vs (i)'s {held} on the same "
+            f"weights and batch: relative {step_err} > {MESH_STEP_LOSS_TOL}")
+    timing = {"peak_bytes": peak, "mesh": MESH_TRAIN_TIMED,
+              "first_loss": losses["sharded"][0], "held_loss": held,
+              "first_loss_err": step_err, "moe_calls_a_step": want_calls}
+    for name, fn in fns.items():
+        timed = sorted(ms[name][TRAIN_WARMUP:])
+        prof = profile_breakdown(torch, lambda: fn(params, state, batch),
+                                 groups=())
+        timing[name] = {"ms": ms[name], "median_ms": timed[len(timed) // 2],
+                        "device_calls": prof["device_calls"],
+                        "device_busy_ms": prof["device_busy_ms"]}
+    rows.append({"timing": timing})
+    print(f"phase 18b {cfg.name} step over {MESH_TRAIN_TIMED}: the sharded "
+          f"MoE ran {2 * n_moe} times a step (forward and recomputation), "
+          f"the single-device step's 0; first loss {losses['sharded'][0]!r} "
+          f"vs (i)'s {held!r} (relative {step_err:.2e}, tolerance "
+          f"{MESH_STEP_LOSS_TOL})")
+    print(f"phase 18b {cfg.name} step (bf16, AdamW), in turns, "
+          f"{TRAIN_WARMUP} warm-ups then {TRAIN_TIMED}: single-device "
+          f"{timing['single']['median_ms']:.1f} ms (steps "
+          f"{[round(x, 1) for x in ms['single']]}; {timing['single']['device_calls']}"
+          f" launches a step, busy {timing['single']['device_busy_ms']:.1f} "
+          f"ms), over {MESH_TRAIN_TIMED} {timing['sharded']['median_ms']:.1f} "
+          f"ms (steps {[round(x, 1) for x in ms['sharded']]}; "
+          f"{timing['sharded']['device_calls']} launches a step, busy "
+          f"{timing['sharded']['device_busy_ms']:.1f} ms); peak device "
+          f"memory {peak} bytes")
+    out["18b"] = rows
+    del params, state, fns, model, model32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_mesh_train_resume(torch, out) -> None:
+    """18c: elastic resume at the smoke configs of qwen3-1.7b and
+    deepseek-moe-16b (see ``run_mesh_training``)."""
+    import shutil
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import elastic, loop
+    from repro_torch.train.loop import to_device
+    from repro_torch.train.step import build_train_step
+
+    mid, end = TRAIN_RESUME
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    res = out["18c"] = {}
+    for arch in (TRAIN_ARCH, "deepseek-moe-16b"):
+        cfg = smoke_config(get_config(arch))
+        model = build_model(cfg)
+        dev = model.device
+        data = SyntheticLMData(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+        m_a, m_b = (mesh_of(s, dev) for s in MESH_TRAIN_RESUME)
+        root = ROOT / "build" / "ckpt18c" / arch
+        shutil.rmtree(root, ignore_errors=True)
+        lcfg = loop.LoopConfig(steps=mid, ckpt_dir=str(root),
+                               ckpt_every=10 ** 6, log_every=10 ** 6,
+                               seed=SEED)
+        first = loop.train(model, data, lcfg, opt_cfg=opt,
+                           log_fn=lambda *_: None, mesh=m_a)
+        step, state, mesh = elastic.remesh(model, str(root), mesh=m_b,
+                                           opt_cfg=opt)
+        restored_equal = step == mid and all(
+            torch.equal(a, b) for a, b in zip(
+                state["params"].parameters(), first["params"].parameters())
+        ) and all(torch.equal(state["opt"].m[n], first["opt_state"].m[n])
+                  and torch.equal(state["opt"].v[n], first["opt_state"].v[n])
+                  for n in state["opt"].m)
+        require(restored_equal, f"18c {arch}: remesh onto "
+                f"{MESH_TRAIN_RESUME[1]} did not restore the saved state")
+        fn = build_train_step(model, m_b, opt_cfg=opt)[0]
+        params, st = state["params"], state["opt"]
+        resumed = [h["loss"] for h in first["history"]]
+        for i in range(mid, end):
+            params, st, m = fn(params, st, to_device(data.batch_at(i), dev))
+            resumed.append(m["loss"].item())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(lcfg.seed)
+        params = model.init(gen)
+        st = adamw.init(opt, params)
+        fns = [build_train_step(model, mm, opt_cfg=opt)[0] for mm in (m_a, m_b)]
+        kept = []
+        for i in range(end):
+            params, st, m = fns[i >= mid](params, st, to_device(
+                data.batch_at(i), dev))
+            kept.append(m["loss"].item())
+        err = max(abs(a - b) / abs(b) for a, b in zip(resumed, kept))
+        exact = resumed == kept
+        if cfg.family == "moe":
+            require(err <= TRAIN_RESUME_TOL, f"18c {arch}: resumed losses "
+                    f"{resumed} vs kept {kept}: {err} > {TRAIN_RESUME_TOL}")
+        else:
+            require(exact, f"18c {arch}: resumed losses {resumed} vs kept "
+                    f"{kept} are not bit-identical")
+        shutil.rmtree(root, ignore_errors=True)
+        res[arch] = {"resumed": resumed, "kept": kept, "max_rel_err": err,
+                     "exact": exact}
+        print(f"phase 18c {arch} (smoke config, {cfg.dtype}): {mid} steps "
+              f"over {MESH_TRAIN_RESUME[0]} through train.loop.train, a "
+              f"checkpoint, remesh onto {MESH_TRAIN_RESUME[1]} (state "
+              f"restored bit for bit), {end - mid} more steps, against the "
+              f"run kept in memory: largest relative loss difference "
+              f"{err:.2e} (bit-identical: {exact}; "
+              f"{'tolerance ' + str(TRAIN_RESUME_TOL) if cfg.family == 'moe' else 'required'})")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_answers_right(out) -> bool:
+    """``serve_search_torch``'s answers against numpy intersections of its
+    postings (term lists: the plain log)."""
+    post = out["postings"]
+    for q, got in zip(out["queries"], out["doc_ids"]):
+        want = post[q[0]]
+        for t in q[1:]:
+            want = np.intersect1d(want, post[t])
+        if not np.array_equal(np.asarray(got, dtype=np.int64),
+                              want.astype(np.int64)):
+            return False
+    return True
+
+
+def run_examples(torch, out, kernels) -> dict:
+    """18d: the four twins of ``examples/`` on the card at their default
+    sizes, each reaching its own check; returns the launches of each
+    kernel that each made."""
+    import shutil
+
+    ckpt = ROOT / "build" / "ckpt18d"
+    runs = (("quickstart_torch", []),
+            ("constrained_decode_torch", []),
+            ("serve_search_torch", []),
+            ("train_lm_torch", ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                                "--ckpt", str(ckpt)]))
+    res = out["18d"] = {}
+    launches = {}
+    for name, argv in runs:
+        mod = load_example(name)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = mod.main(argv)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        launches[name] = {k: fn.launches for k, fn in kernels.items()}
+        if name == "quickstart_torch":
+            ok = np.array_equal(got["device_result"], got["truth"])
+        elif name == "constrained_decode_torch":
+            ok = all(r.done and set(r.out) <= got["allowed"]
+                     for r in got["requests"] if r.constraint is not None)
+        elif name == "serve_search_torch":
+            ok = example_answers_right(got)
+        else:
+            ok = bool(got["improved"])
+        require(ok, f"18d: {name} did not reach its check")
+        res[name] = {"argv": argv, "s": s, "launches": launches[name]}
+        print(f"phase 18d {name} {' '.join(argv)}: {s:.1f} s, its check "
+              f"reached; kernel launches {json.dumps(launches[name])}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
+def run_mesh_training(torch, report) -> dict:
+    """Phase 18: LM training over a mesh of logical shards on the one card,
+    through ``train.step.build_train_step(mesh=, fsdp=, microbatch=)``,
+    ``train.loop.train(mesh=)``, ``train.checkpoint.restore(shardings=)``
+    and ``train.elastic.remesh``, then the examples' twins:
+    18a qwen3-1.7b unreduced (fp32 weights from seed 0, bf16 activations),
+    B 4 x S 512: one step over (2, 2) at microbatch 2, FSDP off and on,
+    against the single-device step (loss, grad norm and every updated
+    parameter within what two single-device steps differ by, or 1e-6
+    relative), and FSDP on against off alike;
+    18b deepseek-moe-16b at its widths cut to ``MESH_MOE_LAYERS`` layers on
+    (1, 4) and (2, 2), B 4 x S 512: (i) a bf16 step's loss against float32
+    (TF32 off) over the same mesh within ``TRAIN_LOSS_TOL``, and each
+    bf16 block's backward fed the float32 stream and cotangent
+    (``grad_blocks``); (ii) each float32 MoE layer's backward through the
+    sharded stages against the single-device dispatch on each shard's
+    token slice (``moe_grads_vs_local_slices``); (iii) the step over (2, 2)
+    beside the single-device step, CUDA events in turns, launches a step
+    and peak memory; each sharded step runs the sharded stages forward and
+    in remat's recomputation (2 a MoE layer), and its first loss is (i)'s
+    bf16 loss on the same weights and batch within ``MESH_STEP_LOSS_TOL``;
+    18c elastic resume at the smoke configs (dense and MoE): 3 steps over
+    (2, 2) through ``train``, a checkpoint, ``remesh`` onto (1, 4) (the
+    state restored bit for bit), 3 more, against the run kept in memory
+    (dense bit-identical, MoE within ``TRAIN_RESUME_TOL``);
+    18d the four ``examples/*_torch.py`` at their default sizes, timed,
+    each reaching its own check.
+    Returns the kernels' launches: 0 over 18a-18c, and 18d's by twin."""
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda, "pair_count": count_block_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    out = report["mesh_training"] = {"s": {}}
+    for name, fn in (("18a", run_mesh_train_dense),
+                     ("18b", run_mesh_train_moe),
+                     ("18c", run_mesh_train_resume)):
+        t = time.perf_counter()
+        fn(torch, out)
+        out["s"][name] = time.perf_counter() - t
+    launches = {"18a-18c": {name: k.launches for name, k in kernels.items()}}
+    require(sum(launches["18a-18c"].values()) == 0,
+            f"18: the set-intersection kernels launched {launches}")
+    t = time.perf_counter()
+    launches.update(run_examples(torch, out, kernels))
+    out["s"]["18d"] = time.perf_counter() - t
+    out["launches"] = launches
+    print(f"phase 18 seconds: {json.dumps(out['s'])}; the three kernels' "
+          f"launches {json.dumps(launches)}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -5106,6 +5673,10 @@ def main(argv=None) -> int:
     # phase 17: LM serving over a mesh of logical shards on the card
     mesh_launches = run_mesh_serving(torch, report)
     t_phase = phase_done("17 LM serving over a mesh", t_phase)
+
+    # phase 18: LM training over a mesh, then the examples' twins
+    train_mesh_launches = run_mesh_training(torch, report)
+    t_phase = phase_done("18 LM training over a mesh", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -5116,6 +5687,10 @@ def main(argv=None) -> int:
     for path, by_kernel in async_launches.items():
         for name, n in by_kernel.items():
             paths[name][path] = n
+    for twin in ("quickstart_torch", "serve_search_torch"):
+        if twin in train_mesh_launches:
+            for name in ("bitmap_filter", "group_match"):
+                paths[name][f"18d {twin}"] = train_mesh_launches[twin][name]
     for name, by_path in paths.items():
         require(all(n > 0 for n in by_path.values()),
                 f"{name} never launched on a path: {by_path}")
@@ -5162,7 +5737,8 @@ def main(argv=None) -> int:
           f"{json.dumps(lm_launches)}; 15 LM families: "
           f"{json.dumps(fam_launches)}; 16 LM training: "
           f"{json.dumps(train_launches)}; 17 LM serving over a mesh: "
-          f"{json.dumps(mesh_launches)}")
+          f"{json.dumps(mesh_launches)}; 18 LM training over a mesh and "
+          f"the examples: {json.dumps(train_mesh_launches)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,2 @@
-"""Single-device training: the train step, checkpoints and the loop."""
+"""LM training: the train step on one device or over a mesh, checkpoints,
+the loop and elastic restarts."""

@@ -18,8 +18,20 @@ package restores the other's checkpoints:
 A state tree is a dict of: a parameter module (``nn.Module``), an
 ``AdamWState``, or nested dicts / lists of tensors or numpy arrays.  Leaves
 are written as float32 (a bf16 optimizer state included: numpy has no
-bf16; restore casts back).  Restoring onto shardings (``shardings=``) is
-ROADMAP item 11d (iii).
+bf16; restore casts back).
+
+``restore(..., shardings=)`` takes, for some of the state's names, a tree
+of ``parallel.sharding.NamedSharding``s shaped like the state: a dict
+keyed by parameter names for a parameter module (as ``shardings_of``
+gives), an ``AdamWState`` of them for an optimizer state
+(``train/elastic.py::remesh`` builds both); shardings of any other tree
+raise ``ValueError``.  Each spec is checked against
+its leaf's shape and its mesh as ``jax.device_put`` checks it: an axis the
+mesh lacks, an axis used twice, or axes whose product does not divide the
+dimension raise ``ValueError``.  A deliberate difference from the
+reference: there is no GSPMD, so a spec is a description, and the tree is
+placed whole on the device at its meshes' coordinate (0, ..., 0), where
+the sharded stages read whole tensors (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ from torch import nn
 from ..device import Device, resolve_device
 from ..models.convert import load_named_, named_to_numpy
 from ..optim.adamw import AdamWState
+from ..parallel.sharding import NamedSharding
 
 SEP = "//"
 
@@ -169,19 +182,83 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _spec_checked(key: str, shape, sharding: NamedSharding) -> torch.device:
+    """``sharding``'s device at coordinate (0, ..., 0), once its spec is
+    known to lay out a leaf of ``shape`` on its mesh."""
+    if not isinstance(sharding, NamedSharding):
+        raise ValueError(f"{key}: {sharding!r} is not a NamedSharding")
+    spec, mesh = tuple(sharding.spec), sharding.mesh
+    if len(spec) > len(shape):
+        raise ValueError(f"{key}: spec {spec} has more entries than the "
+                         f"leaf's shape {tuple(shape)}")
+    used = set()
+    for dim, axes in zip(shape, spec):
+        if axes is None:
+            continue
+        tup = (axes,) if isinstance(axes, str) else tuple(axes)
+        size = 1
+        for a in tup:
+            if a not in mesh.axis_names:
+                raise ValueError(f"{key}: spec {spec} names axis {a!r}, "
+                                 f"which the mesh {mesh.axis_names} lacks")
+            if a in used:
+                raise ValueError(f"{key}: spec {spec} uses axis {a!r} twice")
+            used.add(a)
+            size *= mesh.shape[a]
+        if dim % size:
+            raise ValueError(f"{key}: spec {spec} splits a dimension of "
+                             f"{dim} over {size} shards of the mesh "
+                             f"{mesh.shape}")
+    return mesh.devices.flat[0]
+
+
+def _sharded_leaves(like: Any, shardings: Any, name: str):
+    """(key, shape, sharding) of every leaf of the state tree ``like`` (a
+    module's parameters, or an ``AdamWState``), its sharding taken from
+    ``shardings`` at the same place."""
+    def keyed(named, tree, at):
+        if not isinstance(tree, dict) or set(tree) != {n for n, _ in named}:
+            raise ValueError(f"{at}: the shardings are not keyed by the "
+                             f"leaves' names")
+        return [(f"{at}{SEP}{n}", t.shape, tree[n]) for n, t in named]
+
+    if isinstance(like, nn.Module):
+        return keyed(list(like.named_parameters()), shardings, name)
+    if isinstance(like, AdamWState):
+        if not isinstance(shardings, AdamWState):
+            raise ValueError(f"{name}: an AdamWState needs an AdamWState "
+                             f"of shardings")
+        return ([(f"{name}{SEP}.step", like.step.shape, shardings.step)]
+                + keyed(list(like.m.items()), shardings.m, f"{name}{SEP}.m")
+                + keyed(list(like.v.items()), shardings.v, f"{name}{SEP}.v"))
+    raise ValueError(f"{name}: shardings place a module's parameters or an "
+                     f"AdamWState, not a {type(like).__name__}")
+
+
+def _placement(name: str, like: Any, shardings: Any) -> torch.device:
+    """The one device that a state tree goes to under ``shardings``."""
+    devs = {_spec_checked(k, shape, s)
+            for k, shape, s in _sharded_leaves(like, shardings, name)}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: shardings over several meshes' first "
+                         f"devices {sorted(map(str, devs))}")
+    return devs.pop()
+
+
 def restore(ckpt_dir: str, like: Dict[str, Any], step: Optional[int] = None,
             shardings: Optional[Dict[str, Any]] = None,
             device: Device = "cuda"
             ) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
     """Restore state matching the ``like`` structure (new tensors on
     ``device``; ``like`` itself is left as it is, and may live on the meta
-    device, as ``train.step.abstract_params`` gives).  A missing leaf
-    raises ``KeyError``, a misshapen one ``ValueError``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto shardings is not ported yet: ROADMAP item 11d "
-            "(iii)")
-    dev = resolve_device(device)
+    device, as ``train.step.abstract_params`` gives).  A tree named in
+    ``shardings`` goes to its shardings' device instead (the module
+    docstring).  A missing leaf raises ``KeyError``, a misshapen one or a
+    spec that cannot lay it out ``ValueError``."""
+    shardings = shardings or {}
+    placed = {name: _placement(name, tree, shardings[name])
+              for name, tree in like.items() if name in shardings}
+    dev = resolve_device(device) if len(placed) < len(like) else None
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -191,7 +268,7 @@ def restore(ckpt_dir: str, like: Dict[str, Any], step: Optional[int] = None,
     for name, tree in like.items():
         with np.load(d / f"{name}.npz") as z:
             flat = {k: z[k] for k in z.files}
-        out[name] = _unflatten(tree, flat, dev)
+        out[name] = _unflatten(tree, flat, placed.get(name, dev))
     return manifest["step"], out, manifest.get("extra", {})
 
 

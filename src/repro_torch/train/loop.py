@@ -1,6 +1,7 @@
 """Training loop with checkpoint/restart, preemption and straggler guards.
 
-The port's copy of the JAX package's ``train/loop.py``, on one device.
+The port's copy of the JAX package's ``train/loop.py``, on one device or
+over a mesh (``mesh=``: the step is built over it, ``train/step.py``).
 The loop is deliberately boring: all cleverness lives in the step function
 (train/step.py) and the checkpoint manager.  Fault tolerance properties:
 
@@ -15,7 +16,9 @@ The loop is deliberately boring: all cleverness lives in the step function
 Checkpoints are the JAX package's layout (``train/checkpoint.py``), so a
 run may resume from the other package's.  A fresh run draws its weights
 with the port's ``model.init`` from ``seed`` (the JAX package's
-distributions, not its draws).  ``mesh=`` is ROADMAP item 11d (iii).
+distributions, not its draws).  The arguments keep the port's order,
+``train(model, data, loop_cfg, ..., mesh=None)``, where JAX's is
+``train(model, mesh, data, loop_cfg, ...)``: one device needs no mesh.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 from ..models.model import Model
 from ..optim import adamw
 from . import checkpoint as ckpt
-from .step import _no_mesh, abstract_params, build_train_step
+from .step import abstract_params, build_train_step
 
 
 @dataclasses.dataclass
@@ -64,10 +67,10 @@ def train(model: Model, data, loop_cfg: LoopConfig,
     """Train ``model`` on ``data.batch_at(step)`` from the latest
     checkpoint in ``loop_cfg.ckpt_dir`` (or from ``model.init``) to
     ``loop_cfg.steps``.  Returns the history ({"step", "loss", "time_s"}
-    a step), the final step, the straggler count, params and opt state."""
-    _no_mesh(mesh, "train")
-    step_fn, opt_cfg = build_train_step(model, opt_cfg=opt_cfg,
-                                        microbatch=microbatch)
+    a step), the final step, the straggler count, params and opt state.
+    With ``mesh``, every step runs over it (``build_train_step``)."""
+    step_fn, _, opt_cfg = build_train_step(model, mesh, opt_cfg=opt_cfg,
+                                           microbatch=microbatch)
     dev = model.device
     mgr = ckpt.CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep)
     mgr.install_preemption_handler()

@@ -1,15 +1,24 @@
-"""The train step (loss -> grad -> AdamW, on one device) and the serve
-steps over a mesh.
+"""The train step (loss -> grad -> AdamW) and the serve steps, on one
+device or over a mesh.
 
 The port's copy of the JAX package's ``train/step.py``.
-``build_train_step(model, opt_cfg=...)`` returns ``(train_step,
-opt_cfg)``; ``train_step(params, opt_state, batch) -> (params, opt_state,
-metrics)`` updates the parameter module and the AdamW state in place and
-returns them with ``{"loss", "grad_norm", "lr"}`` (0-d float32 tensors
-on the device, not synchronised).  ``microbatch > 1`` splits the batch
-into that many contiguous row blocks (JAX's reshape), sums their
-gradients in float32, divides by ``microbatch`` and reports the mean
-loss.
+``build_train_step(model, mesh, opt_cfg=..., fsdp=..., microbatch=...)``
+returns ``(train_step, (p_specs, o_specs), opt_cfg)`` (the specs None
+without a mesh); ``train_step(params, opt_state, batch) -> (params,
+opt_state, metrics)`` updates the parameter module and the AdamW state in
+place and returns them with ``{"loss", "grad_norm", "lr"}`` (0-d float32
+tensors on the device, not synchronised).  ``microbatch > 1`` splits the
+batch into that many contiguous row blocks (JAX's reshape, each block
+constrained to ``(None, DP, ...)``), sums their gradients in float32,
+divides by ``microbatch`` and reports the mean loss.
+
+Over a mesh the step enters ``ctx.activation_mesh`` around the whole of
+the forward, the backward and the AdamW update.  The backward recomputes
+each block under ``tuning.remat_wrap``, and that recomputation reads the
+mesh (and the ``capacity_factor`` knob) again: the MoE must take the same
+route, at the same capacity, in both passes, as JAX's one trace does.
+The specs are descriptions (``parallel/ctx.py``): ``fsdp`` changes the
+returned specs, not the values.
 
 Parameters are made with ``requires_grad=False`` (serving builds no
 graph); ``value_and_grad`` turns it on for its backward pass and off
@@ -19,13 +28,13 @@ again.
 over a mesh with their parameter (and cache) specs: each step enters
 ``ctx.activation_mesh`` for the call, so the MoE dispatch and (with the
 ``flash_decode`` knob) the decode attention run shard by shard, and every
-constraint is resolved against the mesh.  Training over a mesh and FSDP
-are ROADMAP item 11d (iii); ``auto_microbatch``, whose only caller is the
-dry run, is item 11e.
+constraint is resolved against the mesh.  ``auto_microbatch``, whose
+only caller is the dry run, is ROADMAP item 11e.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,15 +43,10 @@ from ..models.convert import PARAMS
 from ..models.model import _MODULES, Model
 from ..optim import adamw
 from ..parallel import ctx
+from ..parallel.ctx import PartitionSpec
 from ..parallel.sharding import cache_pspecs, param_pspecs
 
 Batch = Dict[str, torch.Tensor]
-
-
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a mesh is not ported yet: ROADMAP item 11d (iii)")
 
 
 def needs_fsdp(model: Model) -> bool:
@@ -78,33 +82,55 @@ def value_and_grad(model: Model, params: nn.Module, batch: Batch
         for (n, p), g in zip(named, grads)}
 
 
+def train_pspecs(model: Model, mesh, opt_cfg: adamw.AdamWConfig,
+                 fsdp: bool) -> Tuple[Dict[str, PartitionSpec],
+                                      adamw.AdamWState]:
+    """(p_specs, o_specs) of ``model``'s train state on ``mesh``: each
+    parameter's spec, and an ``AdamWState`` of ``step``'s (replicated) and
+    ``m``'s and ``v``'s, all keyed by the parameter names."""
+    p_abs = abstract_params(model)
+    o_abs = adamw.init(opt_cfg, p_abs)
+    return param_pspecs(p_abs, mesh, fsdp=fsdp), adamw.AdamWState(
+        step=PartitionSpec(),
+        m=param_pspecs(o_abs.m, mesh, fsdp=fsdp),
+        v=param_pspecs(o_abs.v, mesh, fsdp=fsdp))
+
+
 def build_train_step(model: Model, mesh=None,
                      opt_cfg: Optional[adamw.AdamWConfig] = None,
                      fsdp: Optional[bool] = None,
-                     microbatch: int = 1) -> Tuple[Callable, adamw.AdamWConfig]:
-    """Returns (train_step, opt_cfg).
+                     microbatch: int = 1):
+    """Returns (train_step, (p_specs, o_specs), opt_cfg).
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
-    ``fsdp=None`` means none on one device (JAX decides by its
-    ``needs_fsdp``); ``fsdp=True`` or a mesh raises (ROADMAP 11d (iii))."""
-    _no_mesh(mesh, "build_train_step")
-    if fsdp:
-        raise NotImplementedError(
-            "FSDP is not ported yet: ROADMAP item 11d (iii)")
+    ``fsdp=None`` means ``needs_fsdp(model)``; the specs are None when
+    ``mesh`` is."""
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         state_dtype="bfloat16" if model.cfg.param_count() > 2e11 else "float32")
+    fsdp = needs_fsdp(model) if fsdp is None else fsdp
+    specs = (None, None) if mesh is None else train_pspecs(
+        model, mesh, opt_cfg, fsdp)
 
     def train_step(params, opt_state, batch):
+        ctx_mesh = (contextlib.nullcontext() if mesh is None
+                    else ctx.activation_mesh(mesh))
+        with ctx_mesh:
+            return _train_step_inner(params, opt_state, batch)
+
+    def split(x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % microbatch:
+            raise ValueError(f"batch {x.shape[0]} does not split into "
+                             f"{microbatch} microbatches")
+        x = x.reshape(microbatch, x.shape[0] // microbatch, *x.shape[1:])
+        return ctx.constrain(x, (None, ctx.DP) + (None,) * (x.ndim - 2))
+
+    def _train_step_inner(params, opt_state, batch):
         if microbatch > 1:
-            b = next(iter(batch.values())).shape[0]
-            if b % microbatch:
-                raise ValueError(f"batch {b} does not split into "
-                                 f"{microbatch} microbatches")
-            rows = b // microbatch
+            sliced = {k: split(x) for k, x in batch.items()}
             gsum, losses = None, []
             for i in range(microbatch):
-                mb = {k: x[i * rows:(i + 1) * rows] for k, x in batch.items()}
-                loss, g = value_and_grad(model, params, mb)
+                loss, g = value_and_grad(
+                    model, params, {k: x[i] for k, x in sliced.items()})
                 losses.append(loss)
                 if gsum is None:
                     gsum = {n: x.float() for n, x in g.items()}
@@ -120,7 +146,7 @@ def build_train_step(model: Model, mesh=None,
                                                   params)
         return params, opt_state, {**metrics, "loss": loss}
 
-    return train_step, opt_cfg
+    return train_step, specs, opt_cfg
 
 
 def build_serve_prefill(model: Model, mesh):

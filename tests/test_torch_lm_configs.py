@@ -187,25 +187,61 @@ def test_remat_wrap_follows_the_knob():
             tuning.remat_wrap(f)
 
 
-def test_mesh_and_fsdp_are_refused():
-    """Training over a mesh or with FSDP is ROADMAP item 11d (iii):
-    refused, not ignored (serving over a mesh is ported)."""
+def test_mesh_and_fsdp_are_refused(tmp_path):
+    """The four calls this test held refused before training over a mesh
+    was ported, and what each does now: ``build_train_step`` over a mesh
+    returns the state's specs and a step that enters the mesh; ``fsdp=True``
+    changes the specs only; ``train(mesh=)`` trains; ``restore(shardings=)``
+    places the state, and refuses a spec that cannot lay out its leaf.
+    ``auto_microbatch`` stays unported (11e, with the dry run)."""
+    from repro_torch.core.engine import make_mesh2d
+    from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel.sharding import NamedSharding, PartitionSpec
     from repro_torch.train import checkpoint, loop, step
 
-    model = build_model(configs.smoke_config(
-        configs.get_config("qwen3-1.7b")), device="cpu")
-    for call in (lambda: step.build_train_step(model, mesh=object()),
-                 lambda: step.build_train_step(model, fsdp=True),
-                 lambda: loop.train(model, None, loop.LoopConfig(ckpt_dir="unused"),
-                                    mesh=object()),
-                 lambda: checkpoint.restore("/nonexistent", {},
-                                            shardings={})):
-        with pytest.raises(NotImplementedError, match=r"11d \(iii\)"):
-            call()
-    # fsdp=None on one device is no FSDP, whatever needs_fsdp says (the
-    # serve builders read it for their specs)
-    assert callable(step.build_train_step(model, fsdp=None)[0])
+    cfg = configs.smoke_config(configs.get_config("qwen3-1.7b"))
+    model = build_model(cfg, device="cpu")
+    mesh = make_mesh2d(2, 2, data_axis="data", shard_axis="model",
+                       devices=["cpu"] * 4)
+    seen = []
+
+    def loss(params, batch):
+        seen.append(ctx.current_mesh())
+        return model.loss(params, batch)
+    watched = dataclasses.replace(model, loss=loss)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    fn, (p_specs, o_specs), _ = step.build_train_step(watched, mesh=mesh,
+                                                      opt_cfg=opt)
+    fn_f, (p_specs_f, _), _ = step.build_train_step(watched, mesh=mesh,
+                                                    opt_cfg=opt, fsdp=True)
+    names = [n for n, _ in model.init(torch.Generator()).named_parameters()]
+    assert list(p_specs) == list(o_specs.m) == list(o_specs.v) == names
+    assert o_specs.step == PartitionSpec()
+    assert p_specs != p_specs_f           # FSDP shards over `data` too
+    assert step.build_train_step(model, fsdp=True)[1] == (None, None)
+    tb = {k: torch.from_numpy(v.astype(np.int64)) for k, v in
+          SyntheticLMData(cfg.vocab, 2, 8, seed=0).batch_at(0).items()}
+    outs = []
+    for f in (fn, fn_f):
+        params = model.init(torch.Generator().manual_seed(0))
+        outs.append(f(params, adamw.init(opt, params), tb))
+    assert seen == [mesh, mesh] and ctx.current_mesh() is None
+    assert torch.equal(outs[0][2]["loss"], outs[1][2]["loss"])
+    out = loop.train(model, SyntheticLMData(cfg.vocab, 2, 8, seed=0),
+                     loop.LoopConfig(steps=1, ckpt_dir=str(tmp_path)),
+                     log_fn=lambda *_: None, mesh=mesh)
+    assert out["final_step"] == 1
+    like = {"params": step.abstract_params(model)}
+    shard = {"params": {n: NamedSharding(mesh, s)
+                        for n, s in p_specs_f.items()}}
+    _, got, _ = checkpoint.restore(str(tmp_path), like, shardings=shard)
+    assert got["params"].embed.device.type == "cpu"
+    shard["params"]["embed"] = NamedSharding(mesh, PartitionSpec("pod"))
+    with pytest.raises(ValueError, match="lacks"):
+        checkpoint.restore(str(tmp_path), like, shardings=shard)
     assert not step.needs_fsdp(model)
     assert not hasattr(step, "auto_microbatch")  # 11e, with the dry run
 

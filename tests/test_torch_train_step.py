@@ -4,9 +4,10 @@
 axes (``tests/_torch_lm.py::auto_mesh``), for three steps at
 ``microbatch`` 1 and 2 on the same seeded batches: loss, grad norm and
 learning rate, the AdamW step, ``m``, ``v`` and the parameters.  A MoE
-model under JAX's mesh takes the expert-parallel dispatch (ROADMAP 11d),
-so the step is compared on a dense config.  Also the microbatch split,
-and ``abstract_params``.
+model under JAX's mesh takes the expert-parallel dispatch, so the step is
+compared on a dense config here (``tests/test_torch_train_mesh.py`` holds
+the MoE step over a mesh).  Also the microbatch split, and
+``abstract_params``.
 """
 import dataclasses
 
@@ -50,7 +51,7 @@ def test_train_step_matches_jax(microbatch):
     jfn, _, jopt = jax_step.build_train_step(
         jmodel, mesh, opt_cfg=jax_adamw.AdamWConfig(**STEP_OPT),
         microbatch=microbatch)
-    fn, opt = step.build_train_step(model, opt_cfg=adamw.AdamWConfig(
+    fn, _, opt = step.build_train_step(model, opt_cfg=adamw.AdamWConfig(
         **STEP_OPT), microbatch=microbatch)
     assert dataclasses.asdict(opt) == dataclasses.asdict(jopt)
     state = adamw.init(opt, params)
@@ -87,7 +88,7 @@ def test_microbatches_are_contiguous_row_blocks():
               for i in range(2)]
     parts = [step.value_and_grad(model, params, h) for h in halves]
     opt = adamw.AdamWConfig(lr=0.0, weight_decay=0.0)
-    fn, _ = step.build_train_step(model, opt_cfg=opt, microbatch=2)
+    fn, _, _ = step.build_train_step(model, opt_cfg=opt, microbatch=2)
     _, state, m = fn(params, adamw.init(opt, params), tb)
     assert torch.equal(m["loss"], torch.stack([l for l, _ in parts]).mean())
     want = adamw.global_norm({n: (parts[0][1][n].float() + parts[1][1][n])
