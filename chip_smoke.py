@@ -333,6 +333,34 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    card, ``train_lm_torch --steps 40``), timed, each reaching its own check; the
                    launches of ``quickstart_torch`` and
                    ``serve_search_torch`` join the kernel table's paths.
+ 19. the dry run against the card — ``launch/dryrun.py`` traces a step on
+               the meta device under ``launch/op_analysis.py``'s recorder,
+               then the card runs the same step under it:
+               19a qwen3-1.7b unreduced, the train step of 16c (B 4 x S
+                   512, int32 batch) on a (1, 1) mesh: the card's flops
+                   equal the trace's exactly, its ops by name are listed
+                   where they differ, the argument bytes equal the real
+                   parameters', optimizer state's and batch's, and the
+                   predicted peak (arguments plus the traced peak) is
+                   within ``DRYRUN_PEAK_TOL`` of
+                   ``torch.cuda.max_memory_allocated``; the roofline terms
+                   (flops at the bf16 peak, bytes at the memory rate)
+                   print beside 16c's measured step and its bound;
+               19b deepseek-moe-16b cut to 4 layers (as 18b) on (2, 2), the
+                   same: the recorded collectives equal the trace's by
+                   type, in count and bytes, and the peak is held;
+               19c the op log of phase 4's modal bucket
+                   (``core/engine.py::bucket_op_log``), taken while phase
+                   4's index lives (after phase 13): its kernel entries
+                   equal the launch counters' increments (1
+                   ``bitmap_filter`` and k - 1 ``group_match`` a pass, an
+                   overflow re-run's launches apart), its answers the
+                   oracle's; its bytes at the memory rate beside the
+                   pass's measured time;
+               19d ``python -m repro_torch.launch.dryrun --arch qwen3-1.7b
+                   --shape train_4k`` as a subprocess (started after phase
+                   1, so its CPU-bound trace overlaps the phases between;
+                   waited here): status ``ok``, its seconds.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -349,7 +377,7 @@ suggest_batch`` and ``11d sharded expressions`` (phase 11's single-device
 baselines excluded), ``async 12b virtual 0.5x`` / ``1.5x``, ``async 12c
 metrics`` / ``traced`` (the first run of each), ``async 12c traced low``
 and ``12e traced suggest_batch``, ``18d quickstart_torch`` and ``18d
-serve_search_torch``; 13a's, 14's-17's and 18a-18c's counts, 0 for every
+serve_search_torch``, ``19c bucket_op_log``; 13a's, 14's-17's and 18a-18c's counts, 0 for every
 kernel, print apart.  The
 last lines are the kernel table as JSON (each kernel's ``launches`` on
 its main path, phase 4 or 7, and ``launches_by_path``) and ``{"ok": true,
@@ -359,6 +387,7 @@ writes a fuller JSON report (every count, time and profile row) to PATH.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
@@ -603,6 +632,19 @@ MESH_TRAIN_RESUME = ((2, 2), (1, 4))
 # steps); serve_search_torch's plain mode serves through the device
 # engine, so its passes launch the kernels
 EXAMPLE_TRAIN_STEPS = 40
+
+# -- the dry run against the card (phase 19) ------------------------------------
+# 19a/19b: the predicted peak (argument bytes plus the meta trace's peak of
+# what the step allocates) against torch.cuda.max_memory_allocated, as a
+# share of the card's.  The trace counts each storage's exact bytes where
+# the caching allocator rounds each block up (to 512 bytes; large blocks
+# to 2 MiB segments, not counted as allocated), and the card may hold a
+# workspace the trace does not see; a wrong lifetime (a saved tensor
+# missed, a freed one still counted) moves gigabytes of a 30-40 GB step
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_MOE_MESH = (2, 2)
+DRYRUN_CELL = ("qwen3-1.7b", "train_4k")     # 19d, at full width
+DRYRUN_CELL_TIMEOUT = 900
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -5483,6 +5525,294 @@ def run_mesh_training(torch, report) -> dict:
     return launches
 
 
+# -- phase 19: the dry run against the card ------------------------------------
+
+def start_dryrun_cell():
+    """19d's subprocess, ``python -m repro_torch.launch.dryrun`` on
+    ``DRYRUN_CELL`` (meta tensors, CPU only), started early so its trace
+    overlaps the phases before 19; it writes its record under
+    ``build/dryrun_torch_19d``.  Returns (process, directory, start)."""
+    import os
+
+    out = ROOT / "build" / "dryrun_torch_19d"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--out", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, out, time.perf_counter()
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dryrun_train_step(torch, cfg, mesh_shape, what: str) -> dict:
+    """One train step of ``cfg`` at B ``TRAIN_BATCH`` x S ``TRAIN_SEQ``
+    over ``mesh_shape``: the dry run's meta trace (``trace_cell``), then
+    the same step on the card under the recorder, from seed-``SEED``
+    weights and an int32 batch (the dtypes of ``Model.batch_spec``).
+    Holds the card's flops to the trace's exactly and its collectives by
+    type (count and bytes), the trace's argument bytes to the real
+    tensors', and the predicted peak to ``max_memory_allocated`` within
+    ``DRYRUN_PEAK_TOL``; returns both sides' numbers."""
+    import gc
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import analyze_ops, record
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import (
+        abstract_params, auto_microbatch, build_train_step,
+    )
+
+    n_dev = math.prod(mesh_shape)
+    shape = ShapeConfig(f"train_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t = time.perf_counter()
+    meta_model = build_model(cfg, device="meta")
+    meta = dryrun.trace_cell(meta_model, shape, mesh_of(mesh_shape, "meta"))
+    mlog = meta.pop("log")
+    trace_s = time.perf_counter() - t
+    # every argument's whole bytes: the mesh's shards all live on the card
+    p_meta = list(abstract_params(meta_model).parameters())
+    state_meta = tensor_bytes(p_meta) * 3 + 4     # params, m, v, step
+    batch_meta = tensor_bytes(meta_model.batch_spec(shape).values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    mesh = mesh_of(mesh_shape, model.device)
+    micro = auto_microbatch(TRAIN_BATCH, TRAIN_SEQ, mesh)
+    require(micro == meta["microbatch"], f"19 {what}: microbatch {micro} vs "
+            f"the trace's {meta['microbatch']}")
+    fn, _, opt_cfg = build_train_step(model, mesh, microbatch=micro)
+    require(opt_cfg.state_dtype == "float32", f"19 {what}: state dtype "
+            f"{opt_cfg.state_dtype}")
+    state = adamw.init(opt_cfg, params)
+    batch = {k: v.to(torch.int32) for k, v in
+             train_batch(torch, cfg, 0, model.device).items()}
+    real_state = tensor_bytes(list(params.parameters())
+                              + list(state.m.values())
+                              + list(state.v.values()) + [state.step])
+    real_batch = tensor_bytes(batch.values())
+    require((real_state, real_batch) == (state_meta, batch_meta),
+            f"19 {what}: arguments {real_state} + {real_batch} bytes on the "
+            f"card, {state_meta} + {batch_meta} in the trace")
+    if n_dev == 1:
+        require(meta["memory_analysis"]["argument_bytes"]
+                == real_state + real_batch,
+                f"19 {what}: the trace's argument bytes "
+                f"{meta['memory_analysis']['argument_bytes']} against "
+                f"{real_state + real_batch} on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with record() as clog:
+        params, state, metrics = fn(params, state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    measured = torch.cuda.max_memory_allocated() - base
+    require(math.isfinite(loss), f"19 {what}: loss {loss}")
+    card = analyze_ops(clog, default_group=n_dev, n_devices=n_dev)
+    traced = meta["op_analysis"]
+    require(card["flops_per_device"] == traced["flops_per_device"],
+            f"19 {what}: flops {card['flops_per_device']} on the card, "
+            f"{traced['flops_per_device']} traced")
+    for key in ("collective_count_by_type", "collective_bytes_by_type"):
+        require(card[key] == traced[key], f"19 {what}: {key} "
+                f"{card[key]} on the card, {traced[key]} traced")
+    by_name_card, by_name_meta = clog.counts(), mlog.counts()
+    differ = {n: (by_name_meta.get(n, 0), by_name_card.get(n, 0))
+              for n in set(by_name_card) | set(by_name_meta)
+              if by_name_card.get(n, 0) != by_name_meta.get(n, 0)}
+    predicted = real_state + real_batch + mlog.peak_bytes
+    peak_err = abs(predicted - measured) / measured
+    require(peak_err <= DRYRUN_PEAK_TOL, f"19 {what}: predicted peak "
+            f"{predicted} bytes, the card's {measured} ({peak_err:.3f} > "
+            f"{DRYRUN_PEAK_TOL})")
+    out = {
+        "mesh": list(mesh_shape), "microbatch": micro, "trace_s": trace_s,
+        "card_step_s": card_s, "loss": loss,
+        "ops": {"trace": len(mlog), "card": len(clog)},
+        "ops_differing": {n: list(v) for n, v in sorted(differ.items())},
+        "flops": traced["flops_per_device"] * n_dev,
+        "hbm_bytes": {"trace": traced["hbm_bytes_per_device"] * n_dev,
+                      "card": card["hbm_bytes_per_device"] * n_dev},
+        "collectives": traced["collective_count_by_type"],
+        "collective_bytes": traced["collective_bytes_by_type"],
+        "argument_bytes": real_state + real_batch,
+        "memory_analysis": meta["memory_analysis"],
+        "traced_peak_bytes": mlog.peak_bytes,
+        "card_recorded_peak_bytes": clog.peak_bytes,
+        "predicted_peak_bytes": predicted, "card_peak_bytes": measured,
+        "peak_err": peak_err,
+    }
+    del params, state, metrics, batch, fn, clog, mlog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dryrun_bucket(torch, engine, log, postings, report) -> dict:
+    """19c: the op log of phase 4's modal bucket (the signature of two or
+    more sets with the most queries) on the card, through ``bucket_op_log``, with the launch
+    counts set to 0 just before it and read just after.  Returns the
+    kernels' launches."""
+    from repro_torch.core.engine import (
+        EXEC_COUNTERS, bucket_op_log, dispatch_device_batch,
+    )
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+    from repro_torch.launch.op_analysis import analyze_ops
+
+    t0 = time.perf_counter()
+    buckets = device_buckets(engine, log)
+    sig = max((s for s in buckets if s.k >= 2), key=lambda s: len(buckets[s]))
+    plans = buckets[sig]
+    rows = [[engine.device.sets[t] for t in p.terms] for p in plans]
+    dev = rows[0][0].device
+
+    def first_pass_ms() -> float:
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        pending = dispatch_device_batch(rows, device=dev)
+        end.record()
+        pending.collect()
+        return start.elapsed_time(end)
+
+    first_pass_ms()
+    pass_ms = float(np.median([first_pass_ms() for _ in range(5)]))
+    bitmap_filter_cuda.launches = group_match_cuda.launches = 0
+    reruns = EXEC_COUNTERS["rerun_calls"]
+    oplog = bucket_op_log(rows, device=dev)
+    launches = {"bitmap_filter": bitmap_filter_cuda.launches,
+                "group_match": group_match_cuda.launches}
+    reruns = EXEC_COUNTERS["rerun_calls"] - reruns
+    entries = oplog.counts("kernel")
+    require(entries == {"bitmap_filter": 1, "group_match": sig.k - 1},
+            f"19c: kernel entries {entries} for k {sig.k}")
+    require(launches == {"bitmap_filter": 1 + reruns,
+                         "group_match": (sig.k - 1) * (1 + reruns)},
+            f"19c: launches {launches} against the log's {entries} and "
+            f"{reruns} re-run pass(es)")
+    for (vals, _), p in zip(oplog.results, plans):
+        require(np.array_equal(vals, oracle(postings, p.terms)),
+                f"19c: wrong answer for {p.terms}")
+    ana = analyze_ops(oplog, default_group=1)
+    bound_ms = ana["hbm_bytes_per_device"] / HBM_BYTES_PER_S * 1e3
+    kernel_bytes = sum(math.prod(shape) * dtype.itemsize
+                       for e in oplog.ops if e.kind == "kernel"
+                       for shape, dtype in e.operands + e.results)
+    out = report["dryrun_bucket"] = {
+        "card": nvidia_smi(), "sig": {"ts": list(sig.ts), "k": sig.k},
+        "queries": len(rows), "ops": len(oplog),
+        "ops_by_kind": {k: sum(1 for e in oplog.ops if e.kind == k)
+                        for k in ("aten", "kernel")},
+        "kernel_entries": entries, "launches": launches, "reruns": reruns,
+        "hbm_bytes": ana["hbm_bytes_per_device"], "kernel_bytes": kernel_bytes,
+        "bytes_ms": bound_ms, "pass_ms": pass_ms,
+        "s": time.perf_counter() - t0}
+    print(f"phase 19c on {out['card']}: bucket_op_log of phase 4's modal "
+          f"bucket (t {list(sig.ts)}, {len(rows)} queries): {len(oplog)} "
+          f"ops ({out['ops_by_kind']}), kernel entries {entries} = "
+          f"launches {launches} ({reruns} re-run pass(es) apart); "
+          f"{ana['hbm_bytes_per_device']:.6g} bytes ({kernel_bytes} in the "
+          f"kernels) at {HBM_BYTES_PER_S:.3g} B/s: {bound_ms:.4f} ms beside "
+          f"the first pass's measured {pass_ms:.4f} ms (CUDA events, median "
+          f"of 5); answers equal the oracle; {out['s']:.1f} s")
+    return launches
+
+
+def run_dryrun(torch, report, cell) -> dict:
+    """Phase 19a, 19b and 19d (19c runs while phase 4's index lives)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out = report["dryrun"] = {"card": nvidia_smi(), "s": {}}
+    card = out["card"]
+    t = time.perf_counter()
+    a = out["19a"] = dryrun_train_step(torch, get_config(TRAIN_ARCH), (1, 1),
+                                       "19a")
+    out["s"]["19a"] = time.perf_counter() - t
+    c16 = report.get("lm_training", {}).get("16a", {}).get("16c", {})
+    flops_ms = a["flops"] / BF16_OPS_PER_S * 1e3
+    bytes_ms = a["hbm_bytes"]["card"] / HBM_BYTES_PER_S * 1e3
+    a["roofline_ms"] = {"flops": flops_ms, "bytes": bytes_ms}
+    print(f"phase 19a on {card}: {TRAIN_ARCH} train step B {TRAIN_BATCH} x "
+          f"S {TRAIN_SEQ} (microbatch {a['microbatch']}): meta trace "
+          f"{a['trace_s']:.1f} s, {a['ops']['trace']} ops; the card "
+          f"{a['ops']['card']} ops (differing by name: "
+          f"{json.dumps(a['ops_differing'])}); flops {a['flops']:.6g} on both"
+          f"; argument bytes {a['argument_bytes']} on both; peak predicted "
+          f"{a['predicted_peak_bytes']} bytes (arguments + traced "
+          f"{a['traced_peak_bytes']}), the card's max_memory_allocated "
+          f"{a['card_peak_bytes']} (error {a['peak_err']:.4f}, tolerance "
+          f"{DRYRUN_PEAK_TOL}; the card's recorder saw "
+          f"{a['card_recorded_peak_bytes']}); roofline: flops at "
+          f"{BF16_OPS_PER_S:.3g}/s {flops_ms:.2f} ms, bytes "
+          f"{a['hbm_bytes']['card']:.6g} at {HBM_BYTES_PER_S:.3g} B/s "
+          f"{bytes_ms:.2f} ms, beside 16c's measured step "
+          f"{c16.get('step_ms', float('nan')):.2f} ms and its hand bound "
+          f"{c16.get('bound_ms', float('nan')):.2f} ms")
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              n_layers=MESH_MOE_LAYERS)
+    b = out["19b"] = dryrun_train_step(torch, cfg, DRYRUN_MOE_MESH, "19b")
+    out["s"]["19b"] = time.perf_counter() - t
+    print(f"phase 19b on {card}: deepseek-moe-16b at {MESH_MOE_LAYERS} "
+          f"layers over {DRYRUN_MOE_MESH}, train step B {TRAIN_BATCH} x S "
+          f"{TRAIN_SEQ}: meta trace {b['trace_s']:.1f} s, "
+          f"{b['ops']['trace']} ops, the card {b['ops']['card']} (differing:"
+          f" {json.dumps(b['ops_differing'])}); collectives "
+          f"{json.dumps(b['collectives'])} and bytes a device "
+          f"{json.dumps(b['collective_bytes'])} on both; flops "
+          f"{b['flops']:.6g} on both; peak predicted "
+          f"{b['predicted_peak_bytes']}, the card's {b['card_peak_bytes']} "
+          f"(error {b['peak_err']:.4f})")
+    # 19d: the subprocess started after phase 1
+    proc, out_dir, started = cell
+    t = time.perf_counter()
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_CELL_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    tag = f"{DRYRUN_CELL[0]}__{DRYRUN_CELL[1]}__16x16"
+    require(proc.returncode == 0, f"19d: the dry run exited "
+            f"{proc.returncode}: {stderr[-2000:]}")
+    rec = json.loads((out_dir / f"{tag}.json").read_text())
+    require(rec["status"] == "ok", f"19d: {tag} {rec['status']}")
+    d = out["19d"] = {
+        "cell": tag, "status": rec["status"], "seconds": rec["seconds"],
+        "trace_s": rec["trace_s"], "ops": rec["ops"],
+        "wall_s": time.perf_counter() - started,
+        "waited_s": time.perf_counter() - t,
+        "memory_analysis": rec["memory_analysis"],
+        "flops_per_device": rec["op_analysis"]["flops_per_device"],
+        "hbm_bytes_per_device": rec["op_analysis"]["hbm_bytes_per_device"]}
+    out["s"]["19d"] = d["waited_s"]
+    print(f"phase 19d: python -m repro_torch.launch.dryrun --arch "
+          f"{DRYRUN_CELL[0]} --shape {DRYRUN_CELL[1]}: {rec['status']} in "
+          f"{rec['seconds']} s (trace {rec['trace_s']} s, {rec['ops']} ops, "
+          f"on this host's CPU alongside phases 2-19), flops a device "
+          f"{d['flops_per_device']:.6g}, peak estimate "
+          f"{rec['memory_analysis']['peak_bytes_est']} bytes a device; "
+          f"waited {d['waited_s']:.1f} s for it")
+    out["s"]["19"] = time.perf_counter() - t_phase
+    print(f"phase 19 seconds: {json.dumps(out['s'])}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -5519,6 +5849,10 @@ def main(argv=None) -> int:
         print("  ptxas:", ln)
     report["build_s"] = build_s
     phase_s = {"1 build": time.perf_counter() - t_start}
+    # 19d's dry run: CPU only, so it runs beside phases 2-18
+    dryrun_cell = start_dryrun_cell()
+    atexit.register(lambda: dryrun_cell[0].poll() is None
+                    and dryrun_cell[0].kill())
 
     def phase_done(name: str, since: float) -> float:
         phase_s[name] = time.perf_counter() - since
@@ -5653,9 +5987,13 @@ def main(argv=None) -> int:
     # phase 13: the host route on phase 4's lists (launches nothing)
     host_launches = run_host_route(torch, engine, postings, log, results,
                                    report)
+    t_phase = phase_done("13 host route", t_phase)
+
+    # phase 19c: the op log of phase 4's modal bucket, while its index lives
+    bucket_launches = run_dryrun_bucket(torch, engine, log, postings, report)
     del engine, postings, results
     torch.cuda.empty_cache()
-    t_phase = phase_done("13 host route", t_phase)
+    t_phase = phase_done("19c bucket op log", t_phase)
 
     # phase 14: constrained LM decoding at qwen3-1.7b's full width
     lm_launches = run_lm_serving(torch, report)
@@ -5677,6 +6015,10 @@ def main(argv=None) -> int:
     # phase 18: LM training over a mesh, then the examples' twins
     train_mesh_launches = run_mesh_training(torch, report)
     t_phase = phase_done("18 LM training over a mesh", t_phase)
+
+    # phase 19: the dry run against the card (19c ran after phase 13)
+    run_dryrun(torch, report, dryrun_cell)
+    t_phase = phase_done("19 dry run", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -5687,6 +6029,8 @@ def main(argv=None) -> int:
     for path, by_kernel in async_launches.items():
         for name, n in by_kernel.items():
             paths[name][path] = n
+    for name, n in bucket_launches.items():
+        paths[name]["19c bucket_op_log"] = n
     for twin in ("quickstart_torch", "serve_search_torch"):
         if twin in train_mesh_launches:
             for name in ("bitmap_filter", "group_match"):

@@ -1920,6 +1920,39 @@ def pow2_tiers(up_to: int) -> Tuple[int, ...]:
     return tuple(1 << i for i in range(up_to.bit_length()))
 
 
+def bucket_op_log(
+    queries: Sequence[Sequence[DeviceSet]],
+    capacity: Optional[int] = None,
+    device: Device = "cuda",
+):
+    """The op log (``launch/op_analysis.py::OpLog``) of one pass of a
+    same-signature bucket: the counterpart of the JAX package's
+    ``bucket_hlo_text``, and the input ``analyze_ops`` reads.
+
+    Checks that the bucket has one signature, then runs its first pass
+    under the recorder exactly as :func:`dispatch_device_batch` runs it
+    (the port's own B with no pow2 padding, the default capacity unless
+    ``capacity`` is given): one ``bitmap_filter`` and k - 1 ``group_match``
+    kernel entries, beside the aten ops around them.  Eager PyTorch has no
+    lower-only step, so the pass executes and bumps the counters as a
+    dispatch does; it is then collected outside the recorder (with any
+    overflow re-run, as a dispatch's collect), and the log's ``results``
+    holds what :func:`intersect_device_batch` would return.
+    """
+    from ..launch.op_analysis import record
+
+    if not len(queries):
+        raise ValueError("need at least one query row to record")
+    sigs = {_signature(sorted(q, key=set_sort_key)) for q in queries}
+    if len(sigs) > 1:
+        raise ValueError("bucket mixes shape signatures")
+    with record() as log:
+        pending = dispatch_device_batch(queries, capacity=capacity,
+                                        device=device)
+    log.results = pending.collect()
+    return log
+
+
 def warm_executables(
     representatives: Sequence[Sequence[DeviceSet]],
     b_tiers: Sequence[int] = (1,),

@@ -2,7 +2,9 @@
 
 A CUDA tensor launches the hand-written kernel (and raises if it cannot);
 a CPU tensor takes the plain PyTorch version.  Nothing falls back: the
-plain version runs only for a tensor that already lies on the CPU.
+plain version runs only for a tensor that already lies on the CPU.  Under
+``launch.op_analysis.record`` each call is one kernel entry of the op log,
+on either route.
 
 The vocab-mask functions of constrained decoding were never kernels (plain
 ``jnp`` in the JAX package) and are torch ops on any device.  Their packed
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..launch import op_analysis
 from . import ref
 from .bitmap_filter import bitmap_filter_cuda
 from .count import CountTable, count_block_cuda
@@ -33,27 +36,37 @@ def bitmap_filter(images: torch.Tensor) -> torch.Tensor:
     """(k, G, m, W) stacked int32 images -> (G,) survivor mask (bool); a
     leading batch axis — (B, k, G, m, W) -> (B, G) — runs B queries of one
     shape in one call."""
-    if _route(images) == "cuda":
-        return bitmap_filter_cuda(images)
-    return ref.bitmap_filter_ref(images)
+    with op_analysis.kernel("bitmap_filter", images) as outs:
+        if _route(images) == "cuda":
+            outs.append(bitmap_filter_cuda(images))
+        else:
+            outs.append(ref.bitmap_filter_ref(images))
+    return outs[0]
 
 
 def group_match(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
     """(S, ga), (S, gb) sentinel-padded int32 -> (S, ga) membership mask
     (bool); leading batch axis supported: (B, S, ga) x (B, S, gb)."""
-    if _route(a_vals) == "cuda":
-        return group_match_cuda(a_vals, b_vals)
-    return ref.group_match_ref(a_vals, b_vals)
+    with op_analysis.kernel("group_match", a_vals, b_vals) as outs:
+        if _route(a_vals) == "cuda":
+            outs.append(group_match_cuda(a_vals, b_vals))
+        else:
+            outs.append(ref.group_match_ref(a_vals, b_vals))
+    return outs[0]
 
 
 def count_block(table: CountTable) -> torch.Tensor:
     """A packed suggest bucket (``kernels.count.make_count_table``) ->
     (B, c_tier) int32 intersection counts of every probe with each of its
     candidates; padding slots count 0."""
-    if _route(table.ptrs) == "cuda":
-        return count_block_cuda(table)
-    return ref.count_block_ref(table.probes, table.cands, table.ts,
-                               c_tier=table.c_tier)
+    mirrors = [*table.probes, *(c for row in table.cands for c in row)]
+    with op_analysis.kernel("pair_count", table.ptrs, *mirrors) as outs:
+        if _route(table.ptrs) == "cuda":
+            outs.append(count_block_cuda(table))
+        else:
+            outs.append(ref.count_block_ref(table.probes, table.cands,
+                                            table.ts, c_tier=table.c_tier))
+    return outs[0]
 
 
 def vocab_mask_and(masks: torch.Tensor) -> torch.Tensor:

@@ -456,10 +456,12 @@ def _ct_cast_bf16(x: torch.Tensor) -> torch.Tensor:
 def _xent_chunk_sum(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
                     z_loss: float) -> torch.Tensor:
     """One chunk's summed ``nll + z_loss * lse**2``, float32: h (B, c, d),
-    emb (V, d), labels (B, c)."""
+    emb (V, d), labels (B, c) of any integer dtype (JAX's batches are
+    int32; the gather widens them to int64, the index dtype it takes)."""
     logits = (h @ emb.to(h.dtype).T).float()                  # (B, c, V)
     lse = torch.logsumexp(logits, dim=-1)
-    true = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    true = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
     return torch.sum(lse - true + z_loss * lse * lse)
 
 

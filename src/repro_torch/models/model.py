@@ -26,16 +26,17 @@ no autograd graph.  Every family is ported:
 (``ssm``), ``xlstm`` and ``encdec``.  As in the JAX package, ``decode``
 of an encoder-decoder model attends to the cache's cross-attention KV,
 which only ``encdec.prefill_cross`` fills (zeros otherwise).
-``batch_spec`` comes with the dry-run tools.
+``batch_spec(shape)`` gives the inputs of a shape as meta tensors, for the
+dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..device import Device, resolve_device
 from . import encdec, moe, ssm, transformer, xlstm
 
@@ -52,6 +53,43 @@ class Model:
     hidden: Callable
     blocks: Optional[Callable] = None
     decode_blocks: Optional[Callable] = None
+
+    def batch_spec(self, shape: ShapeConfig,
+                   per_host_batch: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Meta-tensor stand-ins for the inputs of this (arch, shape), with
+        the JAX package's shapes and dtypes: ``tokens`` and ``labels``
+        int32 (b, s) for train (prefill drops ``labels``), plus ``frames``
+        (b, encoder_seq, frontend_dim) for the encoder-decoder family and
+        ``patch_embeds`` (b, num_patches, frontend_dim) for the patch
+        frontend, in the activation dtype; decode takes ``tokens`` (b, 1)
+        and a 0-d int32 ``pos``.
+
+        The port's ``decode`` takes ``pos`` as a Python int, so the dry run
+        decodes at ``shape.seq_len - 1``, the deepest position; JAX's
+        compiled decode attends over the whole masked cache at any
+        position, so the work is the same."""
+        b = per_host_batch or shape.global_batch
+        s = shape.seq_len
+        cfg = self.cfg
+
+        def spec(shape_, dtype=torch.int32):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            out = {"tokens": spec((b, s)), "labels": spec((b, s))}
+            if cfg.family == "encdec":
+                out["frames"] = spec((b, cfg.encoder_seq, cfg.frontend_dim),
+                                     cfg.activation_dtype)
+            if cfg.frontend == "patch":
+                out["patch_embeds"] = spec(
+                    (b, cfg.num_patches, cfg.frontend_dim),
+                    cfg.activation_dtype)
+            if shape.kind == "prefill":
+                out.pop("labels")
+            return out
+        # decode: one new token against a seq_len-deep cache
+        return {"tokens": spec((b, 1)), "pos": spec(())}
 
 
 _MODULES = {

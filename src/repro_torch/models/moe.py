@@ -18,8 +18,12 @@ Same results as the JAX package on its CPU backend, including where an
 expert overflows: JAX writes the dropped pairs (zeros) into slot C - 1
 after the pair kept there, and the last write wins, so that slot holds
 zeros and the token kept at rank C - 1 loses that expert's output.  The
-port writes only the pairs it keeps (``dispatch``), which leaves that slot
-zero: the same buffer with no duplicate writes.
+port writes only the pairs it keeps into the buffer (``dispatch``,
+``_scatter_kept``), which leaves that slot zero: the same buffer with no
+duplicate writes.  Every shape is fixed by the call's shapes, as JAX's
+scatter's are: a lost pair is written to a spare row that is sliced off,
+not selected by a boolean mask, so the dispatch runs on the meta device
+(the dry run) and never waits on the card for a count.
 
 The gradient agrees too: JAX's scatter passes no cotangent to an
 overwritten update, and the port never writes that pair.
@@ -177,9 +181,25 @@ def dispatch(topi: torch.Tensor, cap: int, n_experts: int):
     starts = torch.searchsorted(se, torch.arange(n_experts, device=dev),
                                 side="left")
     rank = torch.arange(n, device=dev) - starts[se]
-    overflow = torch.bincount(flat_e, minlength=n_experts) > cap
-    kept = (rank < cap) & ~((rank == cap - 1) & overflow[se])
+    load = torch.zeros(n_experts, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones(n, dtype=torch.int64, device=dev))
+    kept = (rank < cap) & ~((rank == cap - 1) & (load > cap)[se])
     return order, se, rank, kept
+
+
+def _scatter_kept(rows: torch.Tensor, se: torch.Tensor, rank: torch.Tensor,
+                  kept: torch.Tensor, n_experts: int, cap: int
+                  ) -> torch.Tensor:
+    """The (E, C, d) capacity buffer holding each kept pair's row of
+    ``rows`` (P, d) at (expert, rank), zeros elsewhere.  Every pair is
+    written: a lost one to a spare row past the buffer, which is sliced
+    off (its gradient is zero there)."""
+    d = rows.shape[-1]
+    slot = torch.where(kept, se * cap + rank, n_experts * cap)
+    buf = torch.zeros((n_experts * cap + 1, d), dtype=rows.dtype,
+                      device=rows.device)
+    buf.index_put_((slot,), rows)
+    return buf[:n_experts * cap].view(n_experts, cap, d)
 
 
 def applied_experts(topi: torch.Tensor, cap: int,
@@ -242,8 +262,7 @@ def _moe_ffn_local(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor,
             order, torch.where(kept, se, -1)).reshape(t, k)))
     dt = xf.dtype
     gathered = ctx.constrain(xf[tok], (ctx.DP, None))
-    buf = torch.zeros((e, cap, d), dtype=dt, device=dev)
-    buf[se[kept], rank[kept]] = gathered[kept]
+    buf = _scatter_kept(gathered, se, rank, kept, e, cap)
     # EP x DP: experts over `model`, capacity slots over the data axes
     buf = ctx.constrain(buf, ("model", ctx.DP, None))
 
@@ -336,8 +355,7 @@ def _moe_ffn_shardmap(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor, mesh,
         aux = e * torch.sum(me * ce)
         order, se, rank, kept = dispatch(topi, cap, e)
         tok = (torch.arange(t_loc * k, device=dev) // k)[order]
-        buf = torch.zeros((e, cap, d), dtype=dt, device=dev)
-        buf[se[kept], rank[kept]] = xf[tok[kept]]
+        buf = _scatter_kept(xf[tok], se, rank, kept, e, cap)
         return aux, buf.reshape(m_sz, e_l, cap, d), (probs, topv, topi,
                                                      order, se, rank, kept, tok)
 

@@ -16,6 +16,11 @@ a group's peers are ordered row-major over ``A`` in the order given, as
 JAX orders ``axis_index`` over a tuple of axes.  Each result block lies on
 its coordinate's device.  The collectives are the same whether the mesh's
 devices repeat (logical shards on one card) or differ.
+
+Under ``launch.op_analysis.record`` each collective is one entry of the op
+log, under its HLO name (``psum``, ``pmax`` and ``pmean`` are
+``all-reduce``), with one coordinate's result block and the group size;
+its backward, when autograd runs one, is another.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import itertools
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
+
+from ..launch import op_analysis
 
 Coord = Tuple[int, ...]
 Grid = Dict[Coord, torch.Tensor]
@@ -76,26 +83,47 @@ def run(mesh, fn: Callable[..., torch.Tensor], *grids: Grid) -> Grid:
 
 
 def _reduce(mesh, grid: Grid, axes: AxisNames,
-            op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> Grid:
+            op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+            divisor: int = 1) -> Grid:
+    """Each group's blocks combined once, in peer order, on the first
+    peer's device (then divided by ``divisor``), and the result handed to
+    every peer on its own device: peers that share a device share one
+    tensor.  A group of g peers costs g - 1 ops, not g of them each."""
     out = {}
     for c in grid:
-        dev = device_of(mesh, c)
+        if c in out:
+            continue
+        peers = _peers(mesh, c, axes)
+        dev = device_of(mesh, peers[0])
         acc = None
-        for p in _peers(mesh, c, axes):
+        for p in peers:
             x = grid[p].to(dev)
             acc = x if acc is None else op(acc, x)
-        out[c] = acc
-    return out
+        if divisor != 1:
+            acc = acc / divisor
+        for p in peers:
+            out[p] = acc.to(device_of(mesh, p))
+    return {c: out[c] for c in grid}
+
+
+def _noted(op: str, mesh, source: Grid, grid: Grid, axes: AxisNames
+           ) -> Grid:
+    first = next(iter(grid))
+    op_analysis.note_collective(op, source[first], grid[first],
+                                len(_peers(mesh, first, axes)))
+    return grid
 
 
 def psum(mesh, grid: Grid, axes: AxisNames) -> Grid:
     """Every block replaced by the sum over its group, added in peer order
     in the blocks' dtype."""
-    return _reduce(mesh, grid, axes, torch.add)
+    return _noted("all-reduce", mesh, grid,
+                  _reduce(mesh, grid, axes, torch.add), axes)
 
 
 def pmax(mesh, grid: Grid, axes: AxisNames) -> Grid:
-    return _reduce(mesh, grid, axes, torch.maximum)
+    return _noted("all-reduce", mesh, grid,
+                  _reduce(mesh, grid, axes, torch.maximum), axes)
 
 
 def pmean(mesh, grid: Grid, axes: AxisNames) -> Grid:
@@ -103,15 +131,17 @@ def pmean(mesh, grid: Grid, axes: AxisNames) -> Grid:
     n = 1
     for a in axes_t:
         n *= mesh.shape[a]
-    return {c: x / n for c, x in psum(mesh, grid, axes).items()}
+    return _noted("all-reduce", mesh, grid,
+                  _reduce(mesh, grid, axes, torch.add, n), axes)
 
 
 def all_gather(mesh, grid: Grid, axes: AxisNames, dim: int = 0) -> Grid:
     """Every block replaced by its group's blocks concatenated along
     ``dim`` in peer order (JAX's ``all_gather(..., tiled=True)``)."""
     dev = {c: device_of(mesh, c) for c in grid}
-    return {c: torch.cat([grid[p].to(dev[c]) for p in _peers(mesh, c, axes)],
-                         dim=dim) for c in grid}
+    return _noted("all-gather", mesh, grid, {
+        c: torch.cat([grid[p].to(dev[c]) for p in _peers(mesh, c, axes)],
+                     dim=dim) for c in grid}, axes)
 
 
 def all_to_all(mesh, grid: Grid, axes: AxisNames, split_axis: int = 0,
@@ -130,4 +160,4 @@ def all_to_all(mesh, grid: Grid, axes: AxisNames, split_axis: int = 0,
         dev = device_of(mesh, c)
         parts = [grid[p].select(split_axis, i).to(dev) for p in peers]
         out[c] = torch.stack(parts, dim=concat_axis)
-    return out
+    return _noted("all-to-all", mesh, grid, out, axes)

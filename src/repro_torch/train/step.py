@@ -28,8 +28,8 @@ again.
 over a mesh with their parameter (and cache) specs: each step enters
 ``ctx.activation_mesh`` for the call, so the MoE dispatch and (with the
 ``flash_decode`` knob) the decode attention run shard by shard, and every
-constraint is resolved against the mesh.  ``auto_microbatch``, whose
-only caller is the dry run, is ROADMAP item 11e.
+constraint is resolved against the mesh.  ``auto_microbatch`` picks the
+dry run's gradient-accumulation factor from the ``micro_tokens`` knob.
 """
 from __future__ import annotations
 
@@ -39,11 +39,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import tuning
 from ..models.convert import PARAMS
 from ..models.model import _MODULES, Model
 from ..optim import adamw
 from ..parallel import ctx
-from ..parallel.ctx import PartitionSpec
+from ..parallel.ctx import PartitionSpec, dp_axes
 from ..parallel.sharding import cache_pspecs, param_pspecs
 
 Batch = Dict[str, torch.Tensor]
@@ -53,6 +54,25 @@ def needs_fsdp(model: Model) -> bool:
     """FSDP once params+optimizer at TP-only sharding would crowd HBM:
     ~12 bytes/param over 16 TP shards > ~2 GiB/chip  =>  ~3B params."""
     return model.cfg.param_count() > 3e9
+
+
+def auto_microbatch(global_batch: int, seq: int, mesh,
+                    target_tokens_per_device: Optional[int] = None) -> int:
+    """Gradient-accumulation factor: keep per-device live activation tokens
+    near ``target_tokens_per_device`` (default: the ``micro_tokens``
+    knob), constrained to divide the per-device batch.  ``mesh`` is read
+    for its data-parallel axes only."""
+    if target_tokens_per_device is None:
+        target_tokens_per_device = tuning.get("micro_tokens")
+    dp = 1
+    for a in dp_axes(mesh):
+        dp *= mesh.shape[a]
+    b_local = max(1, global_batch // dp)
+    micro = max(1, (b_local * seq) // target_tokens_per_device)
+    micro = min(micro, b_local)
+    while b_local % micro:
+        micro -= 1
+    return micro
 
 
 def abstract_params(model: Model) -> nn.Module:

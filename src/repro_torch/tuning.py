@@ -3,11 +3,12 @@
 The port's copy of the JAX package's knob registry, holding the knobs that
 the port reads: ``q_chunk`` (attention query-block size),
 ``scores_dtype``, ``gqa_native`` and ``act_bf16`` (serving), ``xent_chunk``,
-``remat`` and ``grad_bf16`` (training), and ``capacity_factor`` and
-``flash_decode`` (the mesh paths), with the JAX package's defaults (the
-paper-faithful baseline), plus ``get``, ``overrides``, ``parse`` and
-``remat_wrap``.  The JAX package's other knobs, ``micro_tokens`` and
-``seq_shard_mlp``, would change nothing the port does yet; naming one
+``remat`` and ``grad_bf16`` (training), ``capacity_factor`` and
+``flash_decode`` (the mesh paths), and ``micro_tokens``
+(``train/step.py::auto_microbatch``, which the dry run reads), with the
+JAX package's defaults (the paper-faithful baseline), plus ``get``,
+``overrides``, ``parse`` and ``remat_wrap``.  The JAX package's other
+knob, ``seq_shard_mlp``, would change nothing the port does yet; naming it
 raises ``NotImplementedError`` with the ROADMAP item that gives it an
 effect, so a setting never silently does nothing.
 """
@@ -24,6 +25,7 @@ _DEFAULTS: Dict[str, Any] = {
     "q_chunk": 512,          # attention query-block size
     "xent_chunk": 256,       # sequence chunk of the softmax-xent loop
     "scores_dtype": "f32",   # attention score accumulation dtype
+    "micro_tokens": 8192,    # per-device tokens per microbatch target
     "remat": "full",         # full | dots | none
     "gqa_native": False,     # score einsum against Kv heads (no K/V repeat)
     "act_bf16": False,       # norms/gelu: f32 statistics, bf16 application
@@ -35,7 +37,6 @@ _DEFAULTS: Dict[str, Any] = {
 # The JAX package's knobs that the port does not read yet, each with the
 # ROADMAP item that ports its reader.
 _UNPORTED: Dict[str, str] = {
-    "micro_tokens": "11e",     # launch/dryrun.py: auto_microbatch's target
     # its readers constrain the residual stream, which changes nothing on
     # a one-process mesh: it needs constraints that place tensors
     "seq_shard_mlp": "11f",

@@ -5,7 +5,8 @@ neither JAX nor anything of the JAX package, and its 2-D topology
 A subprocess installs a meta-path hook that refuses ``jax``, ``jaxlib``,
 ``repro`` and ``repro.*`` (but not ``repro_torch``) and imports every
 module of the port and ``chip_smoke``; a static scan finds no such import
-in any of their sources.
+in any of their sources.  The dry run (``launch/dryrun.py``, with
+``launch/op_analysis.py``) runs a cell with both refused.
 """
 import ast
 import os
@@ -105,6 +106,41 @@ def test_topology_runs_with_jax_and_repro_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "TOPOLOGY_OK" in proc.stdout
+
+
+DRYRUN_PROBE = r"""
+import json, pathlib, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+from repro_torch.launch import dryrun
+
+out = sys.argv[1]
+dryrun.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--out", out])
+rec = json.loads((pathlib.Path(out) / "qwen3-1.7b__decode_32k__16x16.json")
+                 .read_text())
+assert rec["status"] == "ok" and rec["n_devices"] == 256, rec
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not loaded, loaded
+print("DRYRUN_OK")
+"""
+
+
+def test_dry_run_runs_with_jax_and_repro_blocked(tmp_path):
+    """``launch/dryrun.py`` runs a full-width cell on the meta device (no
+    GPU) with JAX and the JAX package refused."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", DRYRUN_PROBE, str(tmp_path)],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "DRYRUN_OK" in proc.stdout
 
 
 def _imports(path: pathlib.Path):

@@ -8,6 +8,7 @@ the JAX package's, and so must ``SHAPES`` and the knob registry.  All
 comparisons are exact.
 """
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 from repro import configs as jax_configs
 from repro import tuning as jax_tuning
 from repro.models import transformer as jax_transformer
+from repro.train import step as jax_step
 
 from repro_torch import configs, tuning
 from repro_torch.models import transformer
@@ -94,9 +96,10 @@ def test_tuning_parse_matches_jax(spec):
 def test_tuning_unported_knobs_raise(name):
     """A JAX knob whose reader the port lacks is refused, not ignored."""
     item = tuning._UNPORTED[name]
-    # micro_tokens' only reader is auto_microbatch, called by the dry run;
-    # seq_shard_mlp's readers constrain, which places nothing on one process
-    assert item == {"micro_tokens": "11e", "seq_shard_mlp": "11f"}[name]
+    # seq_shard_mlp's readers constrain, which places nothing on one
+    # process; micro_tokens is read since the dry run (11e)
+    assert tuning._UNPORTED == {"seq_shard_mlp": "11f"}
+    assert item == {"seq_shard_mlp": "11f"}[name]
     spec = f"{name}={jax_tuning._DEFAULTS[name]}"
     jax_tuning.parse(spec)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
@@ -109,7 +112,8 @@ def test_tuning_unported_knobs_raise(name):
     assert tuning.get("q_chunk") == 512
 
 
-TRAINING_KNOBS = {"xent_chunk": 4, "remat": "dots", "grad_bf16": True}
+TRAINING_KNOBS = {"xent_chunk": 4, "remat": "dots", "grad_bf16": True,
+                  "micro_tokens": 4096}
 
 
 def _knob_readers(monkeypatch) -> dict:
@@ -139,23 +143,32 @@ def _knob_readers(monkeypatch) -> dict:
     def f(x):
         return x
     seen["remat"] = tuning.remat_wrap(f) is not f
+    from repro_torch.core.engine import make_mesh2d
+    from repro_torch.train.step import auto_microbatch
+
+    seen["micro_tokens"] = auto_microbatch(8, 4096, make_mesh2d(
+        1, 1, data_axis="data", shard_axis="model", devices=["cpu"]))
     return seen
 
 
 @pytest.mark.parametrize("name", sorted(TRAINING_KNOBS))
 def test_tuning_training_knobs_are_read(name, monkeypatch):
-    """The training knobs (ROADMAP 11c, ported) are accepted with JAX's
-    defaults and typed by parse as JAX's are, and each one's setting
-    changes what its reader does: ``xent_chunk`` 4 cuts S 8 into two
-    checkpointed chunks (one at the default 256), ``grad_bf16`` casts the
-    cotangent once (never by default), ``remat`` "dots" wraps as "full"
-    does (and "none" returns the function itself)."""
+    """The training knobs (ROADMAP 11c, ported; ``micro_tokens`` with the
+    dry run, 11e) are accepted with JAX's defaults and typed by parse as
+    JAX's are, and each one's setting changes what its reader does:
+    ``xent_chunk`` 4 cuts S 8 into two checkpointed chunks (one at the
+    default 256), ``grad_bf16`` casts the cotangent once (never by
+    default), ``remat`` "dots" wraps as "full" does (and "none" returns
+    the function itself), ``micro_tokens`` 4096 makes ``auto_microbatch``
+    split 8 x 4096 tokens on one device into 8 microbatches (4 at the
+    default 8192)."""
     assert name in tuning._DEFAULTS and name not in tuning._UNPORTED
     assert tuning.get(name) == jax_tuning._DEFAULTS[name]
     value = TRAINING_KNOBS[name]
     spec = f"{name}={value}"
     assert tuning.parse(spec) == jax_tuning.parse(spec) == {name: value}
-    want = {"xent_chunk": (1, 2), "grad_bf16": (0, 1), "remat": (True, True)}
+    want = {"xent_chunk": (1, 2), "grad_bf16": (0, 1), "remat": (True, True),
+            "micro_tokens": (4, 8)}
     with monkeypatch.context() as mp:
         assert _knob_readers(mp)[name] == want[name][0]
     with tuning.overrides(**{name: value}), monkeypatch.context() as mp:
@@ -193,7 +206,7 @@ def test_mesh_and_fsdp_are_refused(tmp_path):
     returns the state's specs and a step that enters the mesh; ``fsdp=True``
     changes the specs only; ``train(mesh=)`` trains; ``restore(shardings=)``
     places the state, and refuses a spec that cannot lay out its leaf.
-    ``auto_microbatch`` stays unported (11e, with the dry run)."""
+    ``auto_microbatch`` came with the dry run (11e): JAX's factor."""
     from repro_torch.core.engine import make_mesh2d
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model import build_model
@@ -243,7 +256,10 @@ def test_mesh_and_fsdp_are_refused(tmp_path):
     with pytest.raises(ValueError, match="lacks"):
         checkpoint.restore(str(tmp_path), like, shardings=shard)
     assert not step.needs_fsdp(model)
-    assert not hasattr(step, "auto_microbatch")  # 11e, with the dry run
+    # 11e, with the dry run: JAX's factor over the port's mesh
+    assert step.auto_microbatch(256, 4096, mesh) == \
+        jax_step.auto_microbatch(256, 4096, types.SimpleNamespace(
+            axis_names=mesh.axis_names, shape=dict(mesh.shape))) == 64
 
 
 def test_tuning_overrides_and_scores_dtype():

@@ -316,3 +316,41 @@ def test_decode_server_matches_jax(arch):
     """``DecodeServer`` on the smoke config: the reference's cross-slot
     cache writes included, every route agrees in float32."""
     assert_constrained_serving(make_pair(arch=arch))
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 4)],
+                         ids=["single_device", "2x4"])
+def test_dispatch_traces_on_the_meta_device(mesh_shape, monkeypatch):
+    """The capacity dispatch has fixed shapes (expert loads by
+    ``scatter_add_``, lost pairs written to a spare row that is sliced
+    off), so deepseek's smoke train step (forward, remat's recomputation
+    and backward) runs on the meta device, which has no ``bincount`` and
+    no data for a boolean mask: single-device through ``_moe_ffn_local``
+    and over (2, 4) through ``_moe_ffn_shardmap``, with no torch flag."""
+    from repro_torch.configs import ShapeConfig, get_config, smoke_config
+    from repro_torch.core.engine import make_mesh2d
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import abstract_params, build_train_step
+
+    routes = []
+    for name in ("_moe_ffn_local", "_moe_ffn_shardmap"):
+        real = getattr(moe, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            routes.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(moe, name, counted)
+    model = build_model(smoke_config(get_config("deepseek-moe-16b")),
+                        device="meta")
+    mesh = None if mesh_shape is None else make_mesh2d(
+        *mesh_shape, data_axis="data", shard_axis="model",
+        devices=["meta"] * (mesh_shape[0] * mesh_shape[1]))
+    params = abstract_params(model)
+    fn, _, opt = build_train_step(model, mesh)
+    batch = model.batch_spec(ShapeConfig("train_smoke", 32, 8, "train"))
+    _, _, metrics = fn(params, adamw.init(opt, params), batch)
+    assert metrics["loss"].device.type == "meta"
+    assert metrics["loss"].shape == ()
+    want = "_moe_ffn_local" if mesh is None else "_moe_ffn_shardmap"
+    assert routes == [want] * 2          # the forward and its recomputation

@@ -14,7 +14,8 @@ over the tokens whose experts agree (the MoE block is the last at the
 smoke config, so those tokens' losses do not see the others' experts).
 Each ``remat`` mode's gradients equal JAX's under the same mode; an
 expert overflowing its capacity (slot ``cap - 1`` clobbered in the
-reference) gives JAX's gradients.  The chunked Mamba2 and mLSTM blocks'
+reference) gives JAX's gradients.  The loss takes JAX's int32 labels and
+gives the int64 loss bit for bit.  The chunked Mamba2 and mLSTM blocks'
 backward over several chunks (chunk 16, 64 positions: the gradient
 through the inter-chunk state scan) equals JAX's ``vjp``.
 """
@@ -153,6 +154,22 @@ def test_loss_and_grads_match_jax(arch, mode, monkeypatch):
     _, jg = jax_grads(jm, jparams, jb)
     _, g = port_grads(m, params, tb)
     assert_tree_l2(g, jg, BF16_GRAD_TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b"])
+def test_int32_labels_give_the_int64_loss(arch):
+    """JAX's batches are int32 (``batch_spec``, ``SyntheticLMData``): the
+    loss takes int32 tokens and labels, equals the int64 loss and gradients
+    bit for bit, and JAX's loss within ``FP32_TOL``."""
+    jcfg, jmodel, jparams, cfg, model, params = pair_of(arch, "float32")
+    jb, tb = train_batches(cfg, B, S)
+    t32 = {k: v.to(torch.int32) for k, v in tb.items()}
+    assert t32["labels"].dtype == torch.int32 and jb["labels"].dtype == jnp.int32
+    loss64, g64 = step.value_and_grad(model, params, tb)
+    loss32, g32 = step.value_and_grad(model, params, t32)
+    assert torch.equal(loss32, loss64)
+    assert all(torch.equal(g32[n], g64[n]) for n in g64)
+    assert_close(loss32, jax.jit(jmodel.loss)(jparams, jb), FP32_TOL)
 
 
 @pytest.mark.parametrize("remat", ["full", "dots", "none"])
