@@ -646,6 +646,12 @@ DRYRUN_MOE_MESH = (2, 2)
 DRYRUN_CELL = ("qwen3-1.7b", "train_4k")     # 19d, at full width
 DRYRUN_CELL_TIMEOUT = 900
 
+# -- the seq_shard_mlp knob over a mesh (phase 20) -----------------------------
+SEQ_SHARD_MESH = (1, 4)              # 20a: qwen3-1.7b, (4, 128, 2048) blocks
+SEQ_SHARD_MOE_MESH = (2, 2)          # 20b: deepseek at MESH_MOE_LAYERS layers
+SEQ_SHARD_TRAIN_MESH = (2, 2)        # 20c: qwen3 at MESH_TRAIN_MICRO
+SEQ_SHARD_WARMUP, SEQ_SHARD_TIMED = 2, 5     # 20a: prefills in turns
+
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
 # int32 compares: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
@@ -5813,6 +5819,396 @@ def run_dryrun(torch, report, cell) -> dict:
     return out
 
 
+# -- phase 20: the seq_shard_mlp knob over a mesh ------------------------------
+
+@contextlib.contextmanager
+def recorded_layouts(module, name: str):
+    """20a: each call of ``module.name`` (a staged layer) inside the block
+    as its input grid's {coordinate: (shape, device)}."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kw):
+        calls.append({c: (tuple(x.shape), x.device)
+                      for c, x in args[2].items()})
+        return real(*args, **kw)
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def captured_grads(adamw):
+    """20c: the gradients each ``adamw.update`` call inside the block is
+    given (the train step's, after the microbatch mean), one dict a call."""
+    real = adamw.update
+    calls = []
+
+    def wrapped(cfg, grads, *args, **kw):
+        calls.append(grads)
+        return real(cfg, grads, *args, **kw)
+    adamw.update = wrapped
+    try:
+        yield calls
+    finally:
+        adamw.update = real
+
+
+def run_seq_shard_dense(torch, out) -> None:
+    """20a: qwen3-1.7b unreduced, a prefill over ``SEQ_SHARD_MESH`` with
+    the ``seq_shard_mlp`` knob on and off (see ``run_seq_shard``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tuning
+    from repro_torch.configs import get_config
+    from repro_torch.launch.op_analysis import record
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import ctx
+    from repro_torch.train.step import build_serve_prefill
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                          device=dev)
+    mesh = mesh_of(SEQ_SHARD_MESH, dev)
+    b, s = MESH_LM_BATCH, LM_PREFILL_LEN
+    rng = np.random.default_rng(SEED + 20)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s))).to(dev)}
+    prefill = build_serve_prefill(model, mesh)[0]
+
+    # every position's logits: knob on (the layouts between layers
+    # recorded), knob off on the same mesh, and float32 on one device
+    with ctx.activation_mesh(mesh):
+        with tuning.overrides(seq_shard_mlp=True), \
+                recorded_layouts(transformer, "_layer_stages") as layouts:
+            on = prefill_logits(torch, model, params, batch)
+        off = prefill_logits(torch, model, params, batch)
+    with no_tf32(torch):
+        ref = prefill_logits(torch, model32, params, batch)
+    dp, m = SEQ_SHARD_MESH
+    want = (b // dp, s // m, cfg.d_model)
+    require(len(layouts) == cfg.n_layers, f"20a: {len(layouts)} staged "
+            f"layers of {cfg.n_layers}")
+    for i, grid in enumerate(layouts):
+        require(sorted(grid) == coll.coords(mesh) and all(
+            shape == want and d == coll.device_of(mesh, c)
+            for c, (shape, d) in grid.items()),
+            f"20a: layer {i}'s input grid {grid}, not {want} blocks on "
+            f"their devices")
+    require(torch.isfinite(on).all() and on.shape == (b, s, cfg.vocab),
+            "20a: knob-on logits not finite or misshapen")
+    res = {"vs_f32": float(lm_row_errs(on, ref).max()),
+           "vs_off": float(lm_row_errs(on, off).max()),
+           "off_vs_f32": float(lm_row_errs(off, ref).max()),
+           "block": want, "layers_staged": len(layouts)}
+    del on, off, ref
+    require(max(res["vs_f32"], res["vs_off"]) <= LM_TOL,
+            f"20a: knob on vs float32 {res['vs_f32']}, vs off "
+            f"{res['vs_off']} > {LM_TOL}")
+
+    # the builder's prefill: one op log, then the two settings in turns
+    with tuning.overrides(seq_shard_mlp=True), record() as log:
+        last = prefill(params, batch)
+    coll_counts = log.counts("collective")
+    del log
+    require(coll_counts == {"all-gather": 2 * cfg.n_layers,
+                            "reduce-scatter": 2 * cfg.n_layers},
+            f"20a: the op log's collectives {coll_counts}, not 2 "
+            f"all-gathers and 2 reduce-scatters a layer")
+    require(last.shape == (b, cfg.vocab) and torch.isfinite(last).all(),
+            "20a: the builder's logits not finite or misshapen")
+    res["collectives"] = coll_counts
+
+    def run(knob):
+        with tuning.overrides(seq_shard_mlp=knob):
+            prefill(params, batch)
+    ms = {"on": [], "off": []}
+    peak = {"on": 0, "off": 0}
+    for _ in range(SEQ_SHARD_WARMUP + SEQ_SHARD_TIMED):
+        for name in ("on", "off"):
+            start, end = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start.record()
+            run(name == "on")
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+    res["ms"], res["peak_bytes"] = ms, peak
+    res["median_ms"] = {k: sorted(v[SEQ_SHARD_WARMUP:])[SEQ_SHARD_TIMED // 2]
+                        for k, v in ms.items()}
+    res["launches"] = {k: profile_breakdown(
+        torch, lambda k=k: run(k == "on"), groups=())["device_calls"]
+        for k in ("on", "off")}
+    out["20a"] = res
+    print(f"phase 20a {cfg.name} unreduced, prefill B {b} x S {s} over a "
+          f"{SEQ_SHARD_MESH} mesh on {dev}: seq_shard_mlp on, every "
+          f"position's logits vs float32 (TF32 off) {res['vs_f32']:.4f}, "
+          f"vs the knob off {res['vs_off']:.4f} (off vs float32 "
+          f"{res['off_vs_f32']:.4f}; bound {LM_TOL}); {cfg.n_layers} layers "
+          f"staged, each input a grid of {want} blocks on their devices; "
+          f"the op log of one prefill {json.dumps(coll_counts)}; in turns, "
+          f"{SEQ_SHARD_WARMUP} warm-ups then {SEQ_SHARD_TIMED}: on "
+          f"{res['median_ms']['on']:.1f} ms ({[round(x, 1) for x in ms['on']]}"
+          f"; {res['launches']['on']} launches; peak {peak['on']} bytes), off"
+          f" {res['median_ms']['off']:.1f} ms ("
+          f"{[round(x, 1) for x in ms['off']]}; {res['launches']['off']} "
+          f"launches; peak {peak['off']} bytes)")
+    del params, model, model32, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_seq_shard_moe(torch, out) -> None:
+    """20b: deepseek-moe-16b at ``MESH_MOE_LAYERS`` layers, a prefill over
+    ``SEQ_SHARD_MOE_MESH`` with the knob on and off, end to end and block
+    by block (see ``run_seq_shard``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tuning
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import ctx
+
+    full = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS)
+    model = build_model(cfg)
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    mesh = mesh_of(SEQ_SHARD_MOE_MESH, dev)
+    b, s = MESH_LM_BATCH, MESH_MOE_PREFILL
+    rng = np.random.default_rng(SEED + 202)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    r_on, r_off = [], []
+    with ctx.activation_mesh(mesh):
+        with tuning.overrides(seq_shard_mlp=True), \
+                counted_calls(moe, "_moe_block_stages") as staged:
+            on = prefill_logits(torch, model, params, {"tokens": tokens},
+                                routes=r_on)
+        off = prefill_logits(torch, model, params, {"tokens": tokens},
+                             routes=r_off)
+    # the reference first constrains after the first MoE block
+    require(len(staged) == n_moe - 1, f"20b: {len(staged)} staged MoE "
+            f"blocks of {n_moe - 1}")
+    require(torch.isfinite(on).all(), "20b: knob-on logits not finite")
+    require(len(r_on) == len(r_off), f"20b: {len(r_on)} routes vs "
+            f"{len(r_off)}")
+    shards = len(r_on) // n_moe
+    agree = route_rows(torch, r_off, r_on, shards, shards, b * s)
+    res = held_err(lm_row_errs(on, off), agree, "knob on vs off",
+                   phase="20b")
+    del on, off
+    # end to end the two streams drift apart by bf16 rounding in every
+    # layer (20a: as far as either from float32), so top-k flips there
+    # are counted; 17b's rule holds each staged block fed the knob-off
+    # stream's input against the whole block: each flip a near-tie
+    flips = 0
+    for i in range(n_moe):
+        a_on = joined_route(r_on[i * shards:(i + 1) * shards])
+        a_off = joined_route(r_off[i * shards:(i + 1) * shards])
+        flips += int((a_on.topi.sort(-1)[0] != a_off.topi.sort(-1)[0]
+                      ).any(-1).sum())
+    res.update(route_flips_end_to_end=flips, staged_blocks=len(staged),
+               dropped_on=int(sum((r.applied == -1).sum() for r in r_on)),
+               dropped_off=int(sum((r.applied == -1).sum() for r in r_off)))
+    del r_on, r_off
+    hold, r_on, r_off = BlockHold("knob on vs off", "20b"), [], []
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+        b, s)
+    with ctx.activation_mesh(mesh), torch.no_grad():
+        x = transformer._embed(params, cfg, tokens)
+        with tuning.overrides(seq_shard_mlp=True):
+            spec = transformer.seq_spec(x.shape)
+        layers = moe._layers(params)
+        for i, block in enumerate(model.blocks(params, tokens,
+                                               routes=r_off)):
+            y_off = block(x)[0]
+            if i > cfg.first_dense_layers:
+                grid = moe._moe_block_stages(cfg, mesh, ctx.shard(x, spec),
+                                             layers[i], positions, r_on)[0]
+                hold.add(i, ctx.unshard(grid, spec), y_off.float(), r_on,
+                         r_off)
+            r_off.clear()
+            x = y_off
+    res["blocks"] = bl = hold.out
+    out["20b"] = res
+    print(f"phase 20b {cfg.name} ({cfg.n_layers} of {full.n_layers} layers) "
+          f"prefill B {b} x S {s} over {SEQ_SHARD_MOE_MESH}: "
+          f"{len(staged)} MoE blocks staged; every position, knob on vs off "
+          f"{res['err']:.4f} ({res['held']}, {res['rows_routes_differ']} "
+          f"of {res['rows']} tokens' routes differ; bound {LM_TOL}), "
+          f"{flips} top-k flips end to end in {n_moe * b * s} token-layers; "
+          f"block by block (each staged block fed the knob-off stream) "
+          f"{bl['err']:.4f} over {bl['blocks']} blocks, {bl['route_flips']}"
+          f" flips in {bl['pairs']} token-layers, each a near-tie: largest "
+          f"log-gap {bl['flip_gap']:.5f} (bound {FAM_NEAR_TIE}); dropped "
+          f"pairs on {res['dropped_on']}, off {res['dropped_off']}")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_seq_shard_train(torch, out) -> None:
+    """20c: qwen3-1.7b unreduced, one bf16 train step over
+    ``SEQ_SHARD_TRAIN_MESH`` at ``MESH_TRAIN_MICRO`` with the knob on and
+    off (see ``run_seq_shard``)."""
+    import copy
+    import gc
+
+    from repro_torch import tuning
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    p0 = model.init(gen)
+    batch = train_batch(torch, cfg, 0, dev)
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    mesh = mesh_of(SEQ_SHARD_TRAIN_MESH, dev)
+    fn = build_train_step(model, mesh, opt_cfg=opt,
+                          microbatch=MESH_TRAIN_MICRO)[0]
+    runs = {}
+    for knob in (False, True):
+        params = copy.deepcopy(p0)
+        state = adamw.init(opt, params)
+        gc.collect()                # the last step's state, in cycles
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with tuning.overrides(seq_shard_mlp=knob), \
+                counted_calls(transformer, "_layer_stages") as staged, \
+                captured_grads(adamw) as grads:
+            _, _, m = fn(params, state, batch)
+        torch.cuda.synchronize()
+        runs[knob] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "grads": grads[0], "staged": len(staged),
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "step_peak_bytes":
+                          torch.cuda.max_memory_allocated() - base}
+        del params, state, m, grads
+    on, off = runs[True], runs[False]
+    # forward and remat's recomputation, every layer, every microbatch
+    want = 2 * cfg.n_layers * MESH_TRAIN_MICRO
+    require(on["staged"] == want and off["staged"] == 0,
+            f"20c: {on['staged']} / {off['staged']} staged layers, not "
+            f"{want} / 0")
+    cos = {n: float(torch.sum(g.float() * off["grads"][n].float())
+                    / (g.float().norm() * off["grads"][n].float().norm()
+                       ).clamp_min(1e-30))
+           for n, g in on["grads"].items()}
+    worst = min(cos, key=cos.get)
+    res = {k: {"loss": r["loss"], "grad_norm": r["grad_norm"],
+               "peak_bytes": r["peak_bytes"], "staged": r["staged"],
+               "step_peak_bytes": r["step_peak_bytes"]}
+           for k, r in (("on", on), ("off", off))}
+    res.update(
+        loss_err=abs(on["loss"] - off["loss"]) / abs(off["loss"]),
+        grad_norm_err=abs(on["grad_norm"] - off["grad_norm"])
+        / off["grad_norm"], min_cosine=cos[worst], min_cosine_param=worst)
+    del runs, on["grads"], off["grads"]
+    require(math.isfinite(res["on"]["loss"])
+            and math.isfinite(res["on"]["grad_norm"]),
+            f"20c: loss {res['on']['loss']}, grad norm "
+            f"{res['on']['grad_norm']}")
+    require(res["loss_err"] <= TRAIN_LOSS_TOL
+            and res["grad_norm_err"] <= TRAIN_GNORM_TOL
+            and res["min_cosine"] >= TRAIN_COSINE,
+            f"20c: knob on vs off: loss {res['loss_err']} (bound "
+            f"{TRAIN_LOSS_TOL}), grad norm {res['grad_norm_err']} (bound "
+            f"{TRAIN_GNORM_TOL}), least cosine {res['min_cosine']} of "
+            f"{worst} (bound {TRAIN_COSINE})")
+    out["20c"] = res
+    print(f"phase 20c {cfg.name} unreduced, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, bf16, microbatch {MESH_TRAIN_MICRO}, one step over "
+          f"{SEQ_SHARD_TRAIN_MESH}: seq_shard_mlp on ({want} staged layer "
+          f"calls: forward and recomputation) vs off: loss "
+          f"{res['on']['loss']:.6f} vs {res['off']['loss']:.6f} (relative "
+          f"{res['loss_err']:.2e}, bound {TRAIN_LOSS_TOL}), grad norm "
+          f"relative {res['grad_norm_err']:.2e} (bound {TRAIN_GNORM_TOL}), "
+          f"least gradient cosine {res['min_cosine']:.5f} ({worst}; bound "
+          f"{TRAIN_COSINE}); the step's peak device memory above what was "
+          f"allocated before it: on {res['on']['step_peak_bytes']}, off "
+          f"{res['off']['step_peak_bytes']} bytes (four logical shards on "
+          f"one card hold the same bytes; peaks on "
+          f"{res['on']['peak_bytes']}, off {res['off']['peak_bytes']}, the "
+          f"knob-on step beside the knob-off step's kept gradients)")
+    del p0, fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_seq_shard(torch, report) -> dict:
+    """Phase 20: the ``seq_shard_mlp`` knob over a mesh of logical shards
+    on the one card, through ``build_serve_prefill`` and
+    ``build_train_step(mesh=, microbatch=)``, fp32 weights from seed 0 and
+    bf16 activations:
+    20a qwen3-1.7b unreduced, B 4 x S 512 on ``SEQ_SHARD_MESH``: every
+    position's logits with the knob on against float32 (TF32 off) and
+    against the knob off, within ``LM_TOL``; every layer's input a grid of
+    (4, 128, 2048) blocks on their devices; one prefill's op log 2
+    all-gathers and 2 reduce-scatters a layer; the builder's prefill on
+    and off in turns (CUDA events, ``SEQ_SHARD_TIMED`` after
+    ``SEQ_SHARD_WARMUP``), launches and peak memory;
+    20b deepseek-moe-16b at ``MESH_MOE_LAYERS`` layers, B 4 x S 512 on
+    ``SEQ_SHARD_MOE_MESH``: every position's logits with the knob on
+    against off within ``LM_TOL`` (tokens whose applied experts differ
+    left out only if some row fails, as 15a), their top-k flips counted;
+    each staged MoE block fed the knob-off stream's input against the
+    whole block, as 17b's blocks: within ``LM_TOL``, every top-k flip a
+    near-tie (``FAM_NEAR_TIE``);
+    20c qwen3-1.7b unreduced, one step at microbatch ``MESH_TRAIN_MICRO``
+    on ``SEQ_SHARD_TRAIN_MESH``: the knob on against off under 16a's
+    bounds (loss, grad norm, every gradient's cosine) and both steps'
+    peak memory.
+    Returns the three kernels' launches over the phase (none is on this
+    path)."""
+    from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.count import count_block_cuda
+    from repro_torch.kernels.group_intersect import group_match_cuda
+
+    kernels = {"bitmap_filter": bitmap_filter_cuda,
+               "group_match": group_match_cuda, "pair_count": count_block_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    out = report["seq_shard"] = {"card": nvidia_smi(), "s": {}}
+    for name, fn in (("20a", run_seq_shard_dense), ("20b", run_seq_shard_moe),
+                     ("20c", run_seq_shard_train)):
+        t = time.perf_counter()
+        fn(torch, out)
+        out["s"][name] = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+    require(sum(launches.values()) == 0,
+            f"20: the set-intersection kernels launched {launches}")
+    out["launches"] = launches
+    print(f"phase 20 on {out['card']} seconds: {json.dumps(out['s'])}; the "
+          f"three kernels' launches {json.dumps(launches)}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -6019,6 +6415,10 @@ def main(argv=None) -> int:
     # phase 19: the dry run against the card (19c ran after phase 13)
     run_dryrun(torch, report, dryrun_cell)
     t_phase = phase_done("19 dry run", t_phase)
+
+    # phase 20: the seq_shard_mlp knob over a mesh of logical shards
+    seq_shard_launches = run_seq_shard(torch, report)
+    t_phase = phase_done("20 seq_shard_mlp", t_phase)
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
@@ -6082,7 +6482,8 @@ def main(argv=None) -> int:
           f"{json.dumps(fam_launches)}; 16 LM training: "
           f"{json.dumps(train_launches)}; 17 LM serving over a mesh: "
           f"{json.dumps(mesh_launches)}; 18 LM training over a mesh and "
-          f"the examples: {json.dumps(train_mesh_launches)}")
+          f"the examples: {json.dumps(train_mesh_launches)}; 20 "
+          f"seq_shard_mlp: {json.dumps(seq_shard_launches)}")
     print(f"total {report['total_s']:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

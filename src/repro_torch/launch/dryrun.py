@@ -16,7 +16,8 @@ devices.  For each cell this gives, without allocating:
     estimate from even sharding);
   * per-device flops and HBM bytes (``analyze_ops``, the twin of
     ``analyze_hlo``), and collective bytes by type from the explicit
-    stages' collectives.
+    stages' collectives (with ``--variant seq_shard_mlp=1``, the
+    sequence-parallel layers' too).
 
 Keys with no twin: ``compile_s`` and XLA's ``cost_analysis`` (nothing is
 compiled); ``lower_s`` becomes ``trace_s`` and ``hlo_lines`` becomes
@@ -25,6 +26,8 @@ compiled); ``lower_s`` becomes ``trace_s`` and ``hlo_lines`` becomes
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--skip-existing]
+  python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \
+      --variant seq_shard_mlp=1
 """
 from __future__ import annotations
 
@@ -50,9 +53,10 @@ NOTES = (
     "temp bytes: the traced peak of the storages the step allocates, over "
     "the devices (an estimate from even sharding); it includes the "
     "outputs the step makes anew, so peak_bytes_est is argument + temp",
-    "collectives: only the explicit stages' (the sharded MoE, flash "
-    "decode); those GSPMD would imply for the specs have no twin until "
-    "constraints place tensors (ROADMAP 11f)",
+    "collectives: the explicit stages' (the sharded MoE, flash decode) "
+    "and, with the seq_shard_mlp knob, the sequence-parallel layers' "
+    "all-gathers and reduce-scatters; the others GSPMD would imply for "
+    "the specs have no twin",
     "no twin: compile_s, cost_analysis (nothing is compiled)",
 )
 

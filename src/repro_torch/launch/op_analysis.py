@@ -62,9 +62,10 @@ class OpEntry(NamedTuple):
     """One logged op.  ``kind`` is ``"aten"``, ``"kernel"`` or
     ``"collective"``; ``name`` the aten overload (``aten.mm.default``),
     the kernel's name or the collective's HLO name (``all-reduce``,
-    ``all-gather``, ``all-to-all``).  ``view``: an aten op whose result
-    aliases an operand and writes nothing; ``inplace``: one that writes
-    an operand.  ``group`` is a collective's group size."""
+    ``all-gather``, ``reduce-scatter``, ``all-to-all``).  ``view``: an
+    aten op whose result aliases an operand and writes nothing;
+    ``inplace``: one that writes an operand.  ``group`` is a collective's
+    group size."""
     kind: str
     name: str
     flops: float
@@ -275,7 +276,7 @@ def kernel(name: str, *inputs: torch.Tensor) -> Iterator[list]:
 
 # the collective autograd's backward of each one amounts to
 _TRANSPOSE = {"all-reduce": "all-reduce", "all-to-all": "all-to-all",
-              "all-gather": "reduce-scatter"}
+              "all-gather": "reduce-scatter", "reduce-scatter": "all-gather"}
 
 
 def note_collective(op: str, source: torch.Tensor, result: torch.Tensor,
@@ -284,9 +285,10 @@ def note_collective(op: str, source: torch.Tensor, result: torch.Tensor,
     ``source`` and ``result`` one device's block before and after it,
     ``group`` the peers a group.  When ``result`` takes part in autograd,
     its backward (the reverse copies between the blocks) is one more
-    entry, the transposed collective (``all-gather``'s is a
-    ``reduce-scatter`` whose result is the source block), logged when the
-    gradient reaches ``result``."""
+    entry, the transposed collective, whose result is a block of the
+    source's shape (``all-gather``'s is a ``reduce-scatter``, and
+    ``reduce-scatter``'s an ``all-gather``), logged when the gradient
+    reaches ``result``."""
     rec = active()
     if rec is None:
         return
@@ -294,8 +296,7 @@ def note_collective(op: str, source: torch.Tensor, result: torch.Tensor,
                        group=group))
     if result.requires_grad:
         back = _TRANSPOSE[op]
-        block = rec.operands([source if back == "reduce-scatter"
-                              else result])
+        block = rec.operands([source])
 
         def hook(grad):
             bwd = active()

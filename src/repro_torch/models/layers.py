@@ -78,11 +78,11 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         # applies in bf16
         var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
         inv = torch.rsqrt(var + eps).to(dt)
-        return x * inv * p.scale.to(dt)
+        return x * inv * p.scale.to(x.device, dt)
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * p.scale.float()).to(dt)
+    return (out * p.scale.to(x.device, torch.float32)).to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -403,8 +403,18 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     w_up = ctx.constrain(p.w_up.to(dt), (None, "model"))
     w_down = ctx.constrain(p.w_down.to(dt), ("model", None))
+    w_gate = None
     if hasattr(p, "w_gate"):  # SwiGLU
         w_gate = ctx.constrain(p.w_gate.to(dt), (None, "model"))
+    return mlp_apply(x, w_gate, w_up, w_down)
+
+
+def mlp_apply(x: torch.Tensor, w_gate: Optional[torch.Tensor],
+              w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """``mlp`` on weights already cast (SwiGLU, or GeLU where ``w_gate`` is
+    None); a tensor-parallel shard passes its hidden columns and gets its
+    partial sum."""
+    if w_gate is not None:
         gate = F.silu(x @ w_gate)
         return (gate * (x @ w_up)) @ w_down
     u = x @ w_up

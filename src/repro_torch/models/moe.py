@@ -35,7 +35,9 @@ data shard's tokens, 1/M of them a ``model`` peer, are dispatched into a
 local capacity buffer (no drop at small token counts; otherwise the
 ``capacity_factor`` knob sets the capacity), exchanged with the experts'
 owners, and combined back.  Its dispatch has the same slot ``C - 1``
-clobber, so it reuses ``dispatch``.
+clobber, so it reuses ``dispatch``.  Under the ``seq_shard_mlp`` knob
+the residual stream between the MoE blocks is a grid of sequence blocks
+(``forward``, ``_moe_block_stages``).
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ from .layers import (
     dense_init_, mlp, rmsnorm,
 )
 from .transformer import (
-    Cache, Layer, _attention_dyn, _embed, attn_spec, logits_fn,
+    Cache, Layer, _attention_dyn, _embed, attention_stages, attn_spec,
+    logits_fn, mlp_cols, seq_spec,
 )
 # the family's KV cache: every layer, dense first, as the JAX package's
 from .transformer import init_cache  # noqa: F401
@@ -226,10 +229,15 @@ def moe_ffn(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor,
     dispatch (``_moe_ffn_local``).  With ``routes``, appends this call's
     :class:`Route`s (one a shard on the mesh path)."""
     mesh = ctx.current_mesh()
-    if (mesh is not None and "model" in mesh.axis_names
-            and cfg.n_experts % mesh.shape["model"] == 0):
+    if _expert_parallel(cfg, mesh):
         return _moe_ffn_shardmap(p, cfg, x, mesh, routes)
     return _moe_ffn_local(p, cfg, x, routes)
+
+
+def _expert_parallel(cfg: ArchConfig, mesh) -> bool:
+    """Whether ``moe_ffn`` takes the expert-parallel route on ``mesh``."""
+    return (mesh is not None and "model" in mesh.axis_names
+            and cfg.n_experts % mesh.shape["model"] == 0)
 
 
 def _moe_ffn_local(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor,
@@ -296,17 +304,48 @@ def _experts(p: MoEFFN, buf: torch.Tensor, experts: slice) -> torch.Tensor:
 def _moe_ffn_shardmap(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor, mesh,
                       routes: Optional[list] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GShard-pattern expert parallelism: the reference's ``shard_map``
-    as three stages between collectives.
+    """GShard-pattern expert parallelism: the reference's ``shard_map``.
+    ``x`` (B, S, d) is split over the data axes (``B / dp`` rows a shard)
+    and replicated over ``model``, the shard's tokens go through
+    ``_moe_stages``, and the output is the data shards' rows (model peer
+    0's) on ``x``'s device, plus the shared experts, run whole."""
+    b, s, d = x.shape
+    dp = ctx.dp_axes(mesh)
+    dp_sz = math.prod(mesh.shape[a] for a in dp)
+    if b % dp_sz:
+        raise ValueError(f"batch {b} does not split over the data axes "
+                         f"{dp} ({dp_sz} shards)")
+    b_l = b // dp_sz
+    rows = {c: x[coll.index_along(mesh, c, dp) * b_l:][:b_l].to(
+        coll.device_of(mesh, c)) for c in coll.coords(mesh)}
+    contrib, aux = _moe_stages(p, cfg, rows, mesh, routes)
+    lead = _lead(mesh)
+    out = torch.cat([contrib[c].to(x.device) for c in lead], dim=0)
+    if hasattr(p, "shared"):
+        out = out + mlp(p.shared, x.reshape(b * s, d)).reshape(b, s, d)
+    return out, aux[lead[0]].to(x.device)
 
-    Tokens are split over the data axes (``b_l = B / dp`` rows a shard)
-    and replicated over ``model``; experts are split over ``model`` (E/M a
-    peer).  When the shard's ``t_l`` tokens split evenly over the M peers,
-    each peer routes its own 1/M slice (``t_loc`` tokens); otherwise every
-    peer routes all of them.  Capacity is ``t_loc * k`` (nothing drops)
-    while that is at most 512, else ``ceil(t_loc * k / E * cf)`` rounded up
-    to a multiple of 8 (at least 8), ``cf`` the ``capacity_factor`` knob
-    or the config's.
+
+def _lead(mesh) -> List[coll.Coord]:
+    """The coordinates of ``model`` peer 0, one a data shard in order."""
+    return [c for c in coll.coords(mesh)
+            if coll.index_along(mesh, c, "model") == 0]
+
+
+def _moe_stages(p: MoEFFN, cfg: ArchConfig, rows: coll.Grid, mesh,
+                routes: Optional[list] = None
+                ) -> Tuple[coll.Grid, coll.Grid]:
+    """The body of the reference's ``shard_map`` as three stages between
+    collectives, on a grid of each coordinate's data rows (B/dp, S, d),
+    replicated over ``model``.  Returns the routed experts' output (a grid
+    of the same rows, replicated over ``model``) and the aux loss (a grid).
+
+    Experts are split over ``model`` (E/M a peer).  When the shard's
+    ``t_l`` tokens split evenly over the M peers, each peer routes its own
+    1/M slice (``t_loc`` tokens); otherwise every peer routes all of them.
+    Capacity is ``t_loc * k`` (nothing drops) while that is at most 512,
+    else ``ceil(t_loc * k / E * cf)`` rounded up to a multiple of 8 (at
+    least 8), ``cf`` the ``capacity_factor`` knob or the config's.
 
     1. dispatch (per coordinate): route, aux, the sort-dispatch into an
        (E, C, d) buffer, viewed as (M, E/M, C, d);
@@ -317,20 +356,14 @@ def _moe_ffn_shardmap(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor, mesh,
     3. combine (per coordinate): gather the pairs' outputs back, weight and
        add them per token; ``all_gather`` over ``model`` when sliced.
 
-    The output is the data shards' rows (model peer 0's) on ``x``'s
-    device, plus the shared experts, run whole.  With ``routes``, appends
-    one :class:`Route` for each coordinate that routes its own tokens
-    (every peer when sliced, else model peer 0), in token order."""
-    b, s, d = x.shape
+    With ``routes``, appends one :class:`Route` for each coordinate that
+    routes its own tokens (every peer when sliced, else model peer 0), in
+    token order."""
+    b_l, s, d = next(iter(rows.values())).shape
     e, k = cfg.n_experts, cfg.experts_per_token
     m_sz = mesh.shape["model"]
     e_l = e // m_sz
     dp = ctx.dp_axes(mesh)
-    dp_sz = math.prod(mesh.shape[a] for a in dp)
-    if b % dp_sz:
-        raise ValueError(f"batch {b} does not split over the data axes "
-                         f"{dp} ({dp_sz} shards)")
-    b_l = b // dp_sz
     t_l = b_l * s
     slice_tokens = t_l % m_sz == 0 and t_l >= m_sz
     t_loc = t_l // m_sz if slice_tokens else t_l
@@ -340,11 +373,10 @@ def _moe_ffn_shardmap(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor, mesh,
     else:
         cap = int(math.ceil(t_loc * k / e * cf))
         cap = max(8, -(-cap // 8) * 8)
-    dt = x.dtype
+    dt = next(iter(rows.values())).dtype
 
-    def dispatch_stage(c, dev):
-        r = coll.index_along(mesh, c, dp)
-        xf = x[r * b_l:(r + 1) * b_l].reshape(t_l, d).to(dev)
+    def dispatch_stage(c, dev, x):
+        xf = x.reshape(t_l, d)
         if slice_tokens:
             m = coll.index_along(mesh, c, "model")
             xf = xf[m * t_loc:(m + 1) * t_loc]
@@ -359,7 +391,7 @@ def _moe_ffn_shardmap(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor, mesh,
         return aux, buf.reshape(m_sz, e_l, cap, d), (probs, topv, topi,
                                                      order, se, rank, kept, tok)
 
-    aux, buf, state = coll.run(mesh, dispatch_stage)
+    aux, buf, state = coll.run(mesh, dispatch_stage, rows)
     aux_axes = dp + (("model",) if slice_tokens else ())
     if aux_axes:
         aux = coll.pmean(mesh, aux, aux_axes)
@@ -385,19 +417,44 @@ def _moe_ffn_shardmap(p: MoEFFN, cfg: ArchConfig, x: torch.Tensor, mesh,
     contrib = coll.run(mesh, combine_stage, out_buf, state)
     if slice_tokens:  # rebuild the full data-row (replicated over model)
         contrib = coll.all_gather(mesh, contrib, "model", dim=0)
-    lead = [c for c in coll.coords(mesh)
-            if coll.index_along(mesh, c, "model") == 0]
-    out = torch.cat([contrib[c].reshape(b_l, s, d).to(x.device)
-                     for c in lead], dim=0)
     if routes is not None:
+        lead = _lead(mesh)
         for c in coll.coords(mesh):
             if slice_tokens or c in lead:
                 probs, _, topi, order, se, _, kept, _ = state[c]
                 routes.append(Route(probs, topi, _unsort(
                     order, torch.where(kept, se, -1)).reshape(topi.shape)))
-    if hasattr(p, "shared"):
-        out = out + mlp(p.shared, x.reshape(b * s, d)).reshape(b, s, d)
-    return out, aux[lead[0]].to(x.device)
+    return coll.run(mesh, lambda c, dev, y: y.reshape(b_l, s, d),
+                    contrib), aux
+
+
+def _moe_block_stages(cfg: ArchConfig, mesh, grid: coll.Grid,
+                      layer_p: "MoELayer", positions,
+                      routes: Optional[list] = None
+                      ) -> Tuple[coll.Grid, torch.Tensor]:
+    """A MoE block on a grid of sequence blocks (B/dp, S/M, d), under the
+    ``seq_shard_mlp`` knob: the dense attention half
+    (``transformer.attention_stages``), then norm, all-gather over
+    ``model`` to the ``_moe_stages`` layout (the reference's ``shard_map``
+    in-spec), its stages, each coordinate's S/M rows of their output (a
+    slice: the output is replicated over ``model``) plus the shared
+    experts on those rows, and the residual add.  Returns (grid, aux)."""
+    p = layer_p.moe
+    grid = attention_stages(cfg, mesh, grid, layer_p.ln1, layer_p.attn,
+                            positions, 0)
+    h = coll.run(mesh, lambda c, dev, x: rmsnorm(layer_p.ln2, x), grid)
+    contrib, aux = _moe_stages(p, cfg,
+                               coll.all_gather(mesh, h, "model", dim=1),
+                               mesh, routes)
+
+    def add(c, dev, x, h, y):
+        n = x.shape[1]
+        y = y.narrow(1, coll.index_along(mesh, c, "model") * n, n)
+        if hasattr(p, "shared"):
+            y = y + mlp_cols(p.shared, h, 0, p.shared.w_up.shape[1])
+        return x + y
+
+    return coll.run(mesh, add, grid, h, contrib), aux[_lead(mesh)[0]]
 
 
 def _layers(params: MoEParams) -> list:
@@ -436,16 +493,38 @@ def forward(params: MoEParams, cfg: ArchConfig, tokens: torch.Tensor,
     """Token ids -> (final hidden states (B, S, d), mean aux loss).  Each
     block runs under ``tuning.remat_wrap``; ``routes``
     gets one ``Route`` per MoE layer all the same (the backward pass's
-    recomputation appends to a list of its own)."""
+    recomputation appends to a list of its own).  Where the MoE takes the
+    expert-parallel route and ``transformer.seq_spec`` splits the stream,
+    the stream is cut into sequence blocks where the reference first
+    constrains it, after the first MoE block; the blocks after it run as
+    ``_moe_block_stages``, and the blocks are joined before ``ln_f``."""
     x = _embed(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    mesh = ctx.current_mesh()
+    spec = seq_spec(x.shape) if _expert_parallel(cfg, mesh) else None
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
     fresh = None if routes is None else []
-    for block in blocks(params, cfg, tokens, fresh):
-        x, a = tuning.remat_wrap(block)(x)
-        aux = aux + a
+
+    def staged(grid, layer_p):
+        return _moe_block_stages(cfg, mesh, grid, layer_p, positions, fresh)
+
+    grid = None
+    for layer_p, block in zip(_layers(params),
+                              blocks(params, cfg, tokens, fresh)):
+        if grid is None:
+            x, a = tuning.remat_wrap(block)(x)
+            if spec is not None and isinstance(layer_p, MoELayer):
+                grid = ctx.shard(x, spec)
+        else:
+            grid, a = tuning.remat_wrap(staged)(grid, layer_p)
+        aux = aux + a.to(aux.device)
         if fresh:
             routes.extend(fresh)
             fresh.clear()
+    if grid is not None:
+        x = ctx.unshard(grid, spec)
     return rmsnorm(params.ln_f, x), aux / max(1, cfg.n_layers)
 
 

@@ -15,6 +15,15 @@ over parameters stacked on a leading layer axis.  Each layer runs under
 as JAX's scan body) when gradients are on.
 ``loss_fn`` is the training objective: ``chunked_xent`` of the final
 hidden states against the (tied or separate) output embedding.
+
+Under the ``seq_shard_mlp`` knob and an active mesh (``seq_spec``), the
+stream between layers is Megatron-style sequence parallel, as the
+reference constrains it to ``(DP, "model", None)``: a grid of (B/dp,
+S/M, d) blocks, one a coordinate on its device (``ctx.shard``), and each
+layer tensor parallel over ``model`` as stages between collectives
+(``_layer_stages``): an all-gather of the normed blocks before the
+column-parallel products, a reduce-scatter of the row-parallel partial
+sums after them.  The values are the global route's.
 """
 from __future__ import annotations
 
@@ -28,9 +37,11 @@ from .. import tuning
 from ..configs.base import ArchConfig
 from ..device import Device, resolve_device
 from ..parallel import ctx
+from ..parallel import collectives as coll
 from .layers import (
     MLP, Attention, AttnSpec, RMSNorm, _chunks, _param, _qkv, _repeat_kv,
-    attention_decode, chunked_xent, dense_init_, mlp, rmsnorm,
+    attention_decode, chunked_xent, dense_init_, mlp, mlp_apply, rmsnorm,
+    rope,
 )
 
 Cache = Dict[str, torch.Tensor]
@@ -146,20 +157,28 @@ def _scores(eq: str, a: torch.Tensor, b: torch.Tensor,
 
 
 def _attention_dyn(p: Attention, spec: AttnSpec, x, positions, window: int):
-    """Prefill attention with a per-layer window (0 = unlimited), chunked
-    over queries by the ``q_chunk`` knob, scores in the ``scores_dtype``
-    knob's type, and with ``gqa_native`` scored against the Kv heads."""
-    b, s, d = x.shape
-    sdt = tuning.scores_dtype()
-
+    """Prefill attention with a per-layer window (0 = unlimited): the
+    projections, ``_attend`` and the output projection."""
     q, k, v = _qkv(p, spec, x, positions)
-    groups = spec.n_heads // spec.n_kv
+    o = _attend(q, k, v, positions, window)
+    wo = ctx.constrain(p.wo.to(o.dtype), ("model", None, None))
+    return torch.einsum("bshk,hkd->bsd", o, wo)
+
+
+def _attend(q, k, v, positions, window: int) -> torch.Tensor:
+    """Causal attention of q (B, S, H, D) over k and v (B, S, Kv, D), query
+    head h reading KV head h // (H / Kv), -> (B, S, H, D): chunked over
+    queries by the ``q_chunk`` knob, scores in the ``scores_dtype`` knob's
+    type, and with ``gqa_native`` scored against the Kv heads."""
+    b, s, n_heads, head_dim = q.shape
+    sdt = tuning.scores_dtype()
+    groups = n_heads // k.shape[2]
     gqa_native = tuning.get("gqa_native") and groups > 1
     if not gqa_native:
         k = _repeat_kv(k, groups)
         v = _repeat_kv(v, groups)
-    scale = 1.0 / math.sqrt(spec.head_dim)
-    kv_pos = torch.arange(k.shape[1], device=x.device)
+    scale = 1.0 / math.sqrt(head_dim)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
     q_chunk, n_chunks = _chunks(s, tuning.get("q_chunk"))
     eff_window = window if window > 0 else 2 ** 30
     neg = -30000.0 if sdt == torch.bfloat16 else -1e30
@@ -172,7 +191,7 @@ def _attention_dyn(p: Attention, spec: AttnSpec, x, positions, window: int):
             # score einsum against the Kv heads directly: repeated K/V are
             # never materialized
             b_, c_, H_, D_ = qs_.shape
-            qg = qs_.reshape(b_, c_, spec.n_kv, groups, D_)
+            qg = qs_.reshape(b_, c_, H_ // groups, groups, D_)
             scores = _scores("bckgd,bskd->bkgcs", qg, k, sdt)
             delta = (pos_i[:, None, None, :, None]
                      - kv_pos[None, None, None, None, :])
@@ -197,19 +216,163 @@ def _attention_dyn(p: Attention, spec: AttnSpec, x, positions, window: int):
     o = torch.cat([one_chunk(q[:, c * q_chunk:(c + 1) * q_chunk],
                              positions[:, c * q_chunk:(c + 1) * q_chunk])
                    for c in range(n_chunks)], dim=1)
-    o = o.reshape(b, s, spec.n_heads, spec.head_dim)
-    wo = ctx.constrain(p.wo.to(o.dtype), ("model", None, None))
-    return torch.einsum("bshk,hkd->bsd", o, wo)
+    return o.reshape(b, s, n_heads, head_dim)
+
+
+# ------------------------------------------------- the seq_shard_mlp route
+
+def seq_spec(shape) -> Optional[ctx.PartitionSpec]:
+    """The residual stream's resolved spec under the ``seq_shard_mlp`` knob
+    (JAX's ``constrain(x, (DP, "model", None))`` between layers) when it
+    splits the sequence over a ``model`` axis of more than one peer; None
+    where the stream stays whole: the knob off, no mesh, or S not
+    divisible by the axis, where ``resolve`` drops it."""
+    mesh = ctx.current_mesh()
+    if (not tuning.get("seq_shard_mlp") or mesh is None
+            or mesh.shape.get("model", 1) == 1):
+        return None
+    spec = ctx.resolve(shape, (ctx.DP, "model", None), mesh)
+    return spec if spec[1] == "model" else None
+
+
+def _share(mesh, c: coll.Coord, n: int, split: bool) -> Tuple[int, int]:
+    """Coordinate ``c``'s range of ``n`` heads or columns: its 1/M over
+    ``model`` where the weight's spec splits them, else all of them (the
+    reference's rule: an axis that does not divide is dropped and the
+    weight replicated)."""
+    if not split:
+        return 0, n
+    step = n // mesh.shape["model"]
+    i = coll.index_along(mesh, c, "model")
+    return i * step, (i + 1) * step
+
+
+def _gathered(mesh, grid: coll.Grid, norm: RMSNorm) -> coll.Grid:
+    """Each sequence block normed, then all-gathered over ``model``: every
+    coordinate's (B/dp, S, d) rows."""
+    h = coll.run(mesh, lambda c, dev, x: rmsnorm(norm, x), grid)
+    return coll.all_gather(mesh, h, "model", dim=1)
+
+
+def _to_rows(mesh, grid: coll.Grid, partial: bool) -> coll.Grid:
+    """(B/dp, S, d) blocks back to (B/dp, S/M, d): partial sums over
+    ``model`` reduce-scattered, or each coordinate's own rows of a whole
+    result."""
+    if partial:
+        return coll.psum_scatter(mesh, grid, "model", dim=1)
+
+    def rows(c, dev, y):
+        n = y.shape[1] // mesh.shape["model"]
+        return y.narrow(1, coll.index_along(mesh, c, "model") * n, n)
+    return coll.run(mesh, rows, grid)
+
+
+def _residual(mesh, grid: coll.Grid, delta: coll.Grid) -> coll.Grid:
+    return coll.run(mesh, lambda c, dev, x, y: x + y, grid, delta)
+
+
+def attention_stages(cfg: ArchConfig, mesh, grid: coll.Grid, norm: RMSNorm,
+                     p: Attention, positions, window: int) -> coll.Grid:
+    """A layer's attention half on a grid of sequence blocks (B/dp, S/M,
+    d): norm, all-gather over ``model``, each coordinate's heads (``wq``
+    and ``wo`` split by their resolved specs; ``wk`` / ``wv`` too, or
+    computed whole where their spec drops ``model``, each local query head
+    reading its KV group), the partial output projection reduce-scattered
+    back to sequence blocks, and the residual add."""
+    spec = attn_spec(cfg)
+    g = spec.n_heads // spec.n_kv
+    heads_split = ctx.resolve(p.wq.shape, (None, "model", None),
+                              mesh)[1] is not None
+    kv_split = ctx.resolve(p.wk.shape, (None, "model", None),
+                           mesh)[1] is not None
+
+    def stage(c, dev, x):
+        dt = x.dtype
+        h_lo, h_hi = _share(mesh, c, spec.n_heads, heads_split)
+        kv_lo, kv_hi = h_lo // g, (h_hi - 1) // g + 1
+        kv = slice(kv_lo, kv_hi) if kv_split else slice(None)
+        q = torch.einsum("bsd,dhk->bshk", x, p.wq[:, h_lo:h_hi].to(dev, dt))
+        k = torch.einsum("bsd,dhk->bshk", x, p.wk[:, kv].to(dev, dt))
+        v = torch.einsum("bsd,dhk->bshk", x, p.wv[:, kv].to(dev, dt))
+        if spec.qk_norm:
+            q = rmsnorm(p.q_norm, q)
+            k = rmsnorm(p.k_norm, k)
+        pos = positions[:x.shape[0]].to(dev)     # every row is 0..S-1
+        q = rope(q, pos, spec.rope_theta)
+        k = rope(k, pos, spec.rope_theta)
+        if not kv_split:
+            k, v = k[:, :, kv_lo:kv_hi], v[:, :, kv_lo:kv_hi]
+        # _attend reads KV head j // (H_l / Kv_l) for local query head j;
+        # where the local heads' groups do not line up so, give each its own
+        want = [(h_lo + j) // g - kv_lo for j in range(h_hi - h_lo)]
+        per = (h_hi - h_lo) // (kv_hi - kv_lo)
+        if want != [j // per for j in range(h_hi - h_lo)]:
+            idx = torch.tensor(want, device=dev)
+            k, v = k[:, :, idx], v[:, :, idx]
+        o = _attend(q, k, v, pos, window)
+        return torch.einsum("bshk,hkd->bsd", o,
+                            p.wo[h_lo:h_hi].to(dev, dt))
+
+    h = coll.run(mesh, stage, _gathered(mesh, grid, norm))
+    return _residual(mesh, grid, _to_rows(mesh, h, heads_split))
+
+
+def mlp_cols(p: MLP, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``mlp`` of hidden columns ``lo:hi`` only (a tensor-parallel shard's
+    partial sum), its weights moved to ``x``'s device."""
+    dt, dev = x.dtype, x.device
+    w_gate = (p.w_gate[:, lo:hi].to(dev, dt) if hasattr(p, "w_gate")
+              else None)
+    return mlp_apply(x, w_gate, p.w_up[:, lo:hi].to(dev, dt),
+                     p.w_down[lo:hi].to(dev, dt))
+
+
+def mlp_stages(mesh, grid: coll.Grid, norm: RMSNorm, p: MLP) -> coll.Grid:
+    """A layer's MLP half on a grid of sequence blocks: norm, all-gather
+    over ``model``, each coordinate's ``ff/M`` columns of ``w_gate`` /
+    ``w_up`` and rows of ``w_down`` (all of them where the spec drops
+    ``model``), reduce-scatter, and the residual add."""
+    ff = p.w_up.shape[1]
+    split = ctx.resolve(p.w_up.shape, (None, "model"), mesh)[1] is not None
+
+    def stage(c, dev, x):
+        return mlp_cols(p, x, *_share(mesh, c, ff, split))
+
+    h = coll.run(mesh, stage, _gathered(mesh, grid, norm))
+    return _residual(mesh, grid, _to_rows(mesh, h, split))
+
+
+def _layer_stages(cfg: ArchConfig, mesh, grid: coll.Grid, layer_p: Layer,
+                  window: int, positions) -> coll.Grid:
+    """``_layer_fwd`` on a grid of sequence blocks (B/dp, S/M, d), tensor
+    parallel over ``model``: 2 all-gathers and 2 reduce-scatters."""
+    grid = attention_stages(cfg, mesh, grid, layer_p.ln1, layer_p.attn,
+                            positions, window)
+    return mlp_stages(mesh, grid, layer_p.ln2, layer_p.mlp)
 
 
 def forward(params: DenseParams, cfg: ArchConfig, tokens: torch.Tensor,
             patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token ids -> final hidden states (B, S, d); each layer under
-    ``tuning.remat_wrap``."""
+    ``tuning.remat_wrap``.  Where ``seq_spec`` splits the stream, it is
+    cut into that grid of sequence blocks (``ctx.shard``), every layer
+    runs as ``_layer_stages``, and the blocks are joined before ``ln_f``."""
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, patch_embeds)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
+    spec = seq_spec(x.shape)
+    if spec is not None:
+        mesh = ctx.current_mesh()
+
+        def staged(grid, layer_p, win):
+            return _layer_stages(cfg, mesh, grid, layer_p, win, positions)
+
+        staged = tuning.remat_wrap(staged)
+        grid = ctx.shard(x, spec)
+        for layer_p, win in zip(params.layers, layer_windows(cfg)):
+            grid = staged(grid, layer_p, win)
+        return rmsnorm(params.ln_f, ctx.unshard(grid, spec))
 
     def body(x, layer_p, win):
         return _layer_fwd(cfg, x, layer_p, win, positions)

@@ -19,8 +19,9 @@ devices repeat (logical shards on one card) or differ.
 
 Under ``launch.op_analysis.record`` each collective is one entry of the op
 log, under its HLO name (``psum``, ``pmax`` and ``pmean`` are
-``all-reduce``), with one coordinate's result block and the group size;
-its backward, when autograd runs one, is another.
+``all-reduce``, ``psum_scatter`` is ``reduce-scatter``), with one
+coordinate's result block and the group size; its backward, when
+autograd runs one, is another.
 """
 from __future__ import annotations
 
@@ -82,23 +83,33 @@ def run(mesh, fn: Callable[..., torch.Tensor], *grids: Grid) -> Grid:
     return out
 
 
-def _reduce(mesh, grid: Grid, axes: AxisNames,
-            op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-            divisor: int = 1) -> Grid:
-    """Each group's blocks combined once, in peer order, on the first
-    peer's device (then divided by ``divisor``), and the result handed to
-    every peer on its own device: peers that share a device share one
-    tensor.  A group of g peers costs g - 1 ops, not g of them each."""
-    out = {}
+def _combined(mesh, grid: Grid, axes: AxisNames,
+              op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]):
+    """Each group of ``grid`` once: (its peers in peer order, their blocks
+    combined in that order on the first peer's device).  A group of g
+    peers costs g - 1 ops, not g of them each."""
+    seen = set()
     for c in grid:
-        if c in out:
+        if c in seen:
             continue
         peers = _peers(mesh, c, axes)
+        seen.update(peers)
         dev = device_of(mesh, peers[0])
         acc = None
         for p in peers:
             x = grid[p].to(dev)
             acc = x if acc is None else op(acc, x)
+        yield peers, acc
+
+
+def _reduce(mesh, grid: Grid, axes: AxisNames,
+            op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+            divisor: int = 1) -> Grid:
+    """Each group's blocks combined once (``_combined``), divided by
+    ``divisor``, and the result handed to every peer on its own device:
+    peers that share a device share one tensor."""
+    out = {}
+    for peers, acc in _combined(mesh, grid, axes, op):
         if divisor != 1:
             acc = acc / divisor
         for p in peers:
@@ -142,6 +153,26 @@ def all_gather(mesh, grid: Grid, axes: AxisNames, dim: int = 0) -> Grid:
     return _noted("all-gather", mesh, grid, {
         c: torch.cat([grid[p].to(dev[c]) for p in _peers(mesh, c, axes)],
                      dim=dim) for c in grid}, axes)
+
+
+def psum_scatter(mesh, grid: Grid, axes: AxisNames, dim: int) -> Grid:
+    """Peer i's block replaced by the i-th of ``dim``'s equal slices of its
+    group's sum (JAX's ``psum_scatter(..., tiled=True)``).  Each group is
+    summed once, in peer order in the blocks' dtype, on the first peer's
+    device (``_combined``, as ``psum``), and each peer's slice is moved to
+    its device.  Autograd's backward amounts to an all-gather of the
+    cotangent."""
+    out = {}
+    for peers, acc in _combined(mesh, grid, axes, torch.add):
+        n = acc.shape[dim]
+        if n % len(peers):
+            raise ValueError(f"psum_scatter over {len(peers)} peers: "
+                             f"dimension {dim} of size {n}")
+        step = n // len(peers)
+        for i, p in enumerate(peers):
+            out[p] = acc.narrow(dim, i * step, step).to(device_of(mesh, p))
+    return _noted("reduce-scatter", mesh, grid, {c: out[c] for c in grid},
+                  axes)
 
 
 def all_to_all(mesh, grid: Grid, axes: AxisNames, split_axis: int = 0,

@@ -11,15 +11,21 @@ the sharded paths (``moe._moe_ffn_shardmap``,
 The port has no GSPMD partitioner to hand a constraint to, so a spec is a
 description: ``constrain`` resolves it exactly as the reference does
 (``DP`` expanded, axes that do not divide their dimension dropped) and
-returns its input unchanged.  Only the code the reference writes as a
-``shard_map`` runs shard by shard.
+returns its input unchanged.  What runs shard by shard places its tensors
+itself: the code the reference writes as a ``shard_map``, and the
+residual stream under the ``seq_shard_mlp`` knob, which ``shard`` cuts
+into a grid of blocks on the mesh's devices (``parallel/collectives.py``)
+and ``unshard`` joins again.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
+
+from . import collectives as coll
 
 DP = "__dp__"
 
@@ -95,3 +101,51 @@ def constrain(x: torch.Tensor, spec: Sequence[Any]) -> torch.Tensor:
     if mesh is not None:
         resolve(x.shape, spec, mesh)
     return x
+
+
+def _split(spec) -> list:
+    """(dimension, axes tuple) of each entry of a resolved ``spec`` that
+    names axes."""
+    return [(d, (a,) if isinstance(a, str) else tuple(a))
+            for d, a in enumerate(spec) if a is not None]
+
+
+def shard(x: torch.Tensor, spec: PartitionSpec) -> coll.Grid:
+    """``x`` cut into the grid of a resolved ``spec`` (``resolve``'s
+    output) over the active mesh: each coordinate's block of ``x`` on its
+    device, a dimension split over several axes cut in row-major peer
+    order (``collectives.index_along``), an axis the spec does not name
+    replicated."""
+    mesh = _STATE["mesh"]
+    out = {}
+    for c in coll.coords(mesh):
+        block = x
+        for d, axes in _split(spec):
+            n = x.shape[d] // math.prod(mesh.shape[a] for a in axes)
+            block = block.narrow(d, coll.index_along(mesh, c, axes) * n, n)
+        out[c] = block.to(coll.device_of(mesh, c))
+    return out
+
+
+def unshard(grid: coll.Grid, spec: PartitionSpec) -> torch.Tensor:
+    """The inverse of ``shard``: the blocks of a grid laid out by
+    ``spec`` over the active mesh joined into one tensor on the mesh's
+    first device (an axis the spec does not name read at index 0)."""
+    mesh = _STATE["mesh"]
+    dev = coll.device_of(mesh, coll.coords(mesh)[0])
+    split = _split(spec)
+
+    def join(level: int, at: dict) -> torch.Tensor:
+        if level == len(split):
+            c = tuple(at.get(a, 0) for a in mesh.axis_names)
+            return grid[c].to(dev)
+        d, axes = split[level]
+        parts = []
+        for i in range(math.prod(mesh.shape[a] for a in axes)):
+            idx = {}
+            for a in reversed(axes):
+                i, idx[a] = divmod(i, mesh.shape[a])
+            parts.append(join(level + 1, {**at, **idx}))
+        return torch.cat(parts, dim=d)
+
+    return join(0, {})

@@ -1,16 +1,15 @@
 """Performance knobs read by model code while it runs.
 
-The port's copy of the JAX package's knob registry, holding the knobs that
-the port reads: ``q_chunk`` (attention query-block size),
-``scores_dtype``, ``gqa_native`` and ``act_bf16`` (serving), ``xent_chunk``,
-``remat`` and ``grad_bf16`` (training), ``capacity_factor`` and
-``flash_decode`` (the mesh paths), and ``micro_tokens``
-(``train/step.py::auto_microbatch``, which the dry run reads), with the
-JAX package's defaults (the paper-faithful baseline), plus ``get``,
-``overrides``, ``parse`` and ``remat_wrap``.  The JAX package's other
-knob, ``seq_shard_mlp``, would change nothing the port does yet; naming it
-raises ``NotImplementedError`` with the ROADMAP item that gives it an
-effect, so a setting never silently does nothing.
+The port's copy of the JAX package's knob registry, with every one of its
+knobs and their defaults (the paper-faithful baseline): ``q_chunk``
+(attention query-block size), ``scores_dtype``, ``gqa_native`` and
+``act_bf16`` (serving), ``xent_chunk``, ``remat`` and ``grad_bf16``
+(training), ``capacity_factor``, ``flash_decode`` and ``seq_shard_mlp``
+(the mesh paths: ``seq_shard_mlp`` makes the dense and MoE prefill and
+training forward sequence parallel, ``models/transformer.py``), and
+``micro_tokens`` (``train/step.py::auto_microbatch``, which the dry run
+reads), plus ``get``, ``overrides``, ``parse`` and ``remat_wrap``.  An
+unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -32,22 +31,11 @@ _DEFAULTS: Dict[str, Any] = {
     "grad_bf16": False,      # cast the loss cotangent to bf16 at the xent boundary
     "flash_decode": False,   # per-shard partial-softmax decode attention
     "capacity_factor": 0.0,  # >0 overrides the sharded MoE capacity factor
-}
-
-# The JAX package's knobs that the port does not read yet, each with the
-# ROADMAP item that ports its reader.
-_UNPORTED: Dict[str, str] = {
-    # its readers constrain the residual stream, which changes nothing on
-    # a one-process mesh: it needs constraints that place tensors
-    "seq_shard_mlp": "11f",
+    "seq_shard_mlp": False,  # sequence-parallel residual stream over `model`
 }
 
 
 def _known(name: str) -> str:
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"tuning knob {name!r} is not ported yet: what reads it is "
-            f"ROADMAP item {_UNPORTED[name]}")
     if name not in _DEFAULTS:
         raise KeyError(f"unknown tuning knob {name!r}")
     return name

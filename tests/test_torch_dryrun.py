@@ -315,6 +315,30 @@ def test_train_flops_match_analyze_hlo(jax_lowered, port_traced, arch):
     assert abs(got - want) <= 0.03 * want, (got, want)
 
 
+def test_the_seq_shard_mlp_cell_logs_its_collectives(port_traced):
+    """qwen3's train cell on (2, 4) with ``seq_shard_mlp`` on, as
+    ``--variant seq_shard_mlp=1`` runs it: a layer's forward logs 2
+    all-gathers and 2 reduce-scatters over ``model``; remat's
+    recomputation 2 and 1 (it stops after the last tensor the backward
+    needs, before the MLP's reduce-scatter); the backward 2 and 2 (each
+    one's transpose) — in every microbatch, and no other collective.  The
+    argument bytes are the knob-off cell's: the specs are the same."""
+    arch = "qwen3-1.7b"
+    model = build_model(smoke_config(get_config(arch)), device="meta")
+    with tuning.overrides(seq_shard_mlp=True, **cases.KNOBS):
+        on = dryrun.trace_cell(model, cases.smoke_shape("train", ShapeConfig),
+                               meta_mesh(cases.MESHES["2x4"]))
+    off = port_traced[arch, "train", "2x4"]
+    n = model.cfg.n_layers * on["microbatch"]
+    assert on["collectives_static"]["count_by_type"] == {
+        "all-gather": 6 * n, "reduce-scatter": 5 * n}
+    assert off["collectives_static"]["count_by_type"] == {}
+    assert {e.group for e in on["log"].ops if e.kind == "collective"} == {4}
+    assert on["memory_analysis"]["argument_bytes"] == \
+        off["memory_analysis"]["argument_bytes"]
+    assert on["microbatch"] == off["microbatch"]
+
+
 def test_a_full_width_cell_runs_with_no_torch_flag():
     """``run_cell`` at qwen3-1.7b's full width on the 16 x 16 mesh of meta
     devices (decode at depth 32768, B 128), as the sweep runs it, and a

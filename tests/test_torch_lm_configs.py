@@ -71,11 +71,11 @@ def test_qwen3_full_width_is_1_72b_parameters():
 
 
 def test_tuning_registry_matches_jax():
-    """The port holds the knobs it reads, with JAX's defaults; the rest of
-    JAX's are named as unported, each with its ROADMAP item."""
-    assert set(tuning._DEFAULTS) | set(tuning._UNPORTED) == \
-        set(jax_tuning._DEFAULTS)
-    assert not set(tuning._DEFAULTS) & set(tuning._UNPORTED)
+    """The port holds every one of JAX's knobs, with JAX's defaults, and
+    refuses a name JAX does not know."""
+    assert set(tuning._DEFAULTS) == set(jax_tuning._DEFAULTS)
+    with pytest.raises(KeyError, match="unknown tuning knob"):
+        tuning.get("no_such_knob")
     for name in tuning._DEFAULTS:
         assert tuning._DEFAULTS[name] == jax_tuning._DEFAULTS[name]
         assert tuning.get(name) == jax_tuning.get(name)
@@ -91,25 +91,29 @@ def test_tuning_parse_matches_jax(spec):
     assert tuning.parse(spec) == jax_tuning.parse(spec)
 
 
-@pytest.mark.parametrize("name", sorted(jax_tuning._DEFAULTS.keys() -
-                                        tuning._DEFAULTS.keys()))
-def test_tuning_unported_knobs_raise(name):
-    """A JAX knob whose reader the port lacks is refused, not ignored."""
-    item = tuning._UNPORTED[name]
-    # seq_shard_mlp's readers constrain, which places nothing on one
-    # process; micro_tokens is read since the dry run (11e)
-    assert tuning._UNPORTED == {"seq_shard_mlp": "11f"}
-    assert item == {"seq_shard_mlp": "11f"}[name]
-    spec = f"{name}={jax_tuning._DEFAULTS[name]}"
-    jax_tuning.parse(spec)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        tuning.parse(spec)
-    with pytest.raises(NotImplementedError, match=item):
-        tuning.get(name)
-    with pytest.raises(NotImplementedError, match=item):
-        with tuning.overrides(q_chunk=16, **{name: jax_tuning.get(name)}):
-            pass
-    assert tuning.get("q_chunk") == 512
+def _knob_setting(name: str) -> str:
+    """A setting of ``name`` other than its default, as a parse string."""
+    proto = jax_tuning._DEFAULTS[name]
+    if isinstance(proto, bool):
+        return "on" if not proto else "off"
+    if isinstance(proto, (int, float)):
+        return str(proto * 2 or 1.5)
+    return {"scores_dtype": "bf16", "remat": "dots"}[name]
+
+
+@pytest.mark.parametrize("name", sorted(jax_tuning._DEFAULTS))
+def test_every_jax_knob_is_the_ports(name):
+    """Every knob of the JAX package is the port's, with JAX's default,
+    and parses as JAX's does, alone and beside another knob."""
+    assert tuning._DEFAULTS[name] == jax_tuning._DEFAULTS[name]
+    assert tuning.get(name) == jax_tuning.get(name)
+    for spec in (f"{name}={_knob_setting(name)}",
+                 f"q_chunk=16; {name} = {_knob_setting(name)}"):
+        assert tuning.parse(spec) == jax_tuning.parse(spec)
+        assert tuning.parse(spec)[name] != tuning._DEFAULTS[name]
+    with tuning.overrides(**tuning.parse(f"{name}={_knob_setting(name)}")):
+        assert tuning.get(name) != jax_tuning.get(name)
+    assert tuning.get(name) == jax_tuning.get(name)
 
 
 TRAINING_KNOBS = {"xent_chunk": 4, "remat": "dots", "grad_bf16": True,
@@ -162,7 +166,7 @@ def test_tuning_training_knobs_are_read(name, monkeypatch):
     the function itself), ``micro_tokens`` 4096 makes ``auto_microbatch``
     split 8 x 4096 tokens on one device into 8 microbatches (4 at the
     default 8192)."""
-    assert name in tuning._DEFAULTS and name not in tuning._UNPORTED
+    assert name in tuning._DEFAULTS
     assert tuning.get(name) == jax_tuning._DEFAULTS[name]
     value = TRAINING_KNOBS[name]
     spec = f"{name}={value}"
