@@ -2143,9 +2143,9 @@ class HostCopyMeter:
 
         self._engine, self._to_host = engine, engine._to_host
 
-        def to_host(tensors, ready):
+        def to_host(tensors, ready, times):
             caller = sys._getframe(1).f_code.co_qualname
-            arrays = self._to_host(tensors, ready)
+            arrays = self._to_host(tensors, ready, times)
             self.bytes[caller] = self.bytes.get(caller, 0) + sum(
                 a.nbytes for a in arrays)
             return arrays

@@ -76,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -84,10 +85,12 @@ import torch
 from ..device import Device, resolve_device
 from ..kernels import ops, setops
 from ..kernels.count import CountTable, make_count_table
+from ..obs.trace import profiler_range
 from .partition import PrefixIndex
 
 __all__ = [
     "BatchedEngine",
+    "CollectTimes",
     "DATA_AXIS",
     "DeviceSet",
     "EXEC_COUNTERS",
@@ -166,6 +169,22 @@ class ExecCounters(dict):
       through ``exec.batch.dispatch_bucket`` / torn down by their collect
       (equal after any drain);
     - ``collect_us``  cumulative microseconds in the blocking collect;
+    - ``collect_wait_us`` / ``collect_copy_us`` / ``collect_filter_us``
+      the parts of ``collect_us`` (:class:`CollectTimes`): host
+      microseconds blocked on a pass's ``ready`` event in
+      :func:`_to_host`, in its copies up to the numpy arrays, and in the
+      collect's loop over rows (dropping padding, the sort, the stats), in
+      every pipeline (point, expression, count; single-device, sharded and
+      2-D).  Their sum never exceeds ``collect_us``; the rest is re-run
+      issue and Python;
+    - ``d2h_bytes``  bytes of the tensors :func:`_to_host` brings to the
+      host, first passes and re-runs alike (on the CPU, where the arrays
+      are views, counted all the same);
+    - ``pass_device_us``  the device-clock length of each pass: from a
+      timing event recorded before its first enqueued op to its ``ready``
+      event, summed over the devices it ran on (0 on the CPU).  It includes
+      the stream waiting for the host's launches inside the pass, so it is
+      not the kernels' busy time, which a profiler trace gives;
     - ``overlap_high_water``  most buckets in flight at once;
     - ``warm_executions``  (representative, B-tier) passes run by
       :func:`warm_executables` / :func:`warm_from_plans`, as in the JAX
@@ -196,7 +215,14 @@ class ExecCounters(dict):
       twin included; a 2-D count bucket counts one per replica row);
     - ``suggest_prefilter_in`` / ``suggest_prefilter_kept``  candidates the
       suggest pre-filter examined / kept;
-    - ``dispatch_failures``  buckets whose dispatch or collect raised.
+    - ``dispatch_failures``  buckets whose dispatch or collect raised;
+    - ``host_plan_us``  host microseconds in
+      ``SearchEngine._execute_host_plan`` (HashBin, host RanGroupScan,
+      host expressions).
+
+    ``collect_us`` and the five keys after it move once per bucket
+    collected through ``exec.batch`` (``InFlightBucket.collect``), in one
+    :meth:`bump_many`, so a snapshot sees all of a collect or none of it.
 
     Writes and snapshots serialize on one lock; :meth:`bump` /
     :meth:`bump_many` do the whole read-modify-write under it.
@@ -208,7 +234,9 @@ class ExecCounters(dict):
         "mesh2d_calls", "mesh2d_traces", "mesh2d_rerun_calls",
         "mesh2d_row_dispatches", "replica_dispatches",
         "inflight_dispatches", "inflight_collects",
-        "collect_us", "overlap_high_water",
+        "collect_us", "collect_wait_us", "collect_copy_us",
+        "collect_filter_us", "d2h_bytes", "pass_device_us",
+        "overlap_high_water",
         "warm_executions", "warm_reruns",
         "result_cache_hits", "result_cache_misses",
         "tier_flushes", "deadline_flushes",
@@ -221,7 +249,7 @@ class ExecCounters(dict):
         "subexpr_cache_stores", "subexpr_host_merges",
         "count_calls", "count_traces",
         "suggest_prefilter_in", "suggest_prefilter_kept",
-        "dispatch_failures",
+        "dispatch_failures", "host_plan_us",
     )
 
     def __init__(self):
@@ -309,19 +337,95 @@ def _copy_stream(dev: torch.device) -> "torch.cuda.Stream":
         return stream
 
 
-def _record_ready(dev: torch.device) -> Optional["torch.cuda.Event"]:
-    """An event after the work just issued on ``dev``'s current stream
-    (``None`` on the CPU, where that work already ran)."""
+class _Ready:
+    """The ready mark of one pass on one device: ``end``, a timing event
+    recorded after the pass's last op (what :meth:`query` and
+    :meth:`synchronize` act on), and ``start``, one recorded before its
+    first."""
+
+    __slots__ = ("start", "end")
+
+    def __init__(self, start: "torch.cuda.Event", end: "torch.cuda.Event"):
+        self.start, self.end = start, end
+
+    def query(self) -> bool:
+        return self.end.query()
+
+    def synchronize(self) -> None:
+        self.end.synchronize()
+
+    def device_us(self) -> float:
+        """Device-clock microseconds from ``start`` to ``end``, once met."""
+        return self.start.elapsed_time(self.end) * 1e3
+
+
+def _timing_event(dev: torch.device) -> "torch.cuda.Event":
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(dev))
+    return event
+
+
+def _record_start(dev: torch.device) -> Optional["torch.cuda.Event"]:
+    """A timing event before the work about to be issued on ``dev``'s
+    current stream (``None`` on the CPU)."""
+    return _timing_event(dev) if dev.type == "cuda" else None
+
+
+def _record_ready(dev: torch.device,
+                  start: Optional["torch.cuda.Event"]) -> Optional[_Ready]:
+    """The ready mark after the work issued on ``dev``'s current stream
+    since ``start`` (``None`` on the CPU, where that work already ran)."""
     if dev.type != "cuda":
         return None
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(dev))
-    return ready
+    return _Ready(start, _timing_event(dev))
 
 
-def _to_host(tensors: Sequence[torch.Tensor],
-             ready: Optional["torch.cuda.Event"]) -> List[np.ndarray]:
-    """Copy one pass's outputs to the host, waiting for that pass only.
+def _record_starts(devs: Sequence[torch.device]) -> Dict:
+    """:func:`_record_start` on each distinct device of ``devs``."""
+    return {dev: _record_start(dev) for dev in dict.fromkeys(devs)}
+
+
+class CollectTimes:
+    """Where one bucket's collect went.  ``parts`` holds its host intervals
+    ``(name, start_s, end_s)`` on ``time.perf_counter``: ``wait`` (blocked
+    on a pass's ready event) and ``copy`` (to the numpy arrays) from
+    :func:`_to_host`, and ``filter`` (the collect's loop over rows);
+    ``d2h_bytes`` the bytes copied to the host, ``device_us`` the passes'
+    device-clock lengths and ``passes`` the passes collected (first passes
+    and re-runs)."""
+
+    def __init__(self):
+        self.parts: List[Tuple[str, float, float]] = []
+        self.d2h_bytes = 0
+        self.device_us = 0.0
+        self.passes = 0
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        """Time the block as part ``name``, inside a ``collect.<name>``
+        profiler range."""
+        t0 = time.perf_counter()
+        with profiler_range("collect." + name):
+            yield
+        self.parts.append((name, t0, time.perf_counter()))
+
+    def part_us(self, name: str) -> float:
+        return sum(b - a for n, a, b in self.parts if n == name) * 1e6
+
+    def counters(self) -> Dict[str, int]:
+        """This collect's ``EXEC_COUNTERS`` increments."""
+        return {"collect_wait_us": int(self.part_us("wait")),
+                "collect_copy_us": int(self.part_us("copy")),
+                "collect_filter_us": int(self.part_us("filter")),
+                "d2h_bytes": self.d2h_bytes,
+                "pass_device_us": int(self.device_us)}
+
+
+def _to_host(tensors: Sequence[torch.Tensor], ready: Optional[_Ready],
+             times: CollectTimes) -> List[np.ndarray]:
+    """Copy one pass's outputs to the host, waiting for that pass only,
+    and note the wait, the copy, the bytes and the pass's device time in
+    ``times``.
 
     On the card the host first waits on ``ready``, then copies on the
     device's side stream.  The side stream is shared by every collecting
@@ -330,13 +434,21 @@ def _to_host(tensors: Sequence[torch.Tensor],
     pass.  The copies are blocking, so the source tensors stay referenced
     until they are done.
     """
-    if ready is None:
-        return [t.numpy() for t in tensors]
-    ready.synchronize()
-    stream = _copy_stream(tensors[0].device)
-    with torch.cuda.stream(stream):
-        stream.wait_event(ready)  # already met: orders the copy after it
-        return [t.cpu().numpy() for t in tensors]
+    with times.part("wait"):
+        if ready is not None:
+            ready.synchronize()
+    with times.part("copy"):
+        if ready is None:
+            host = [t.numpy() for t in tensors]
+        else:
+            stream = _copy_stream(tensors[0].device)
+            with torch.cuda.stream(stream):
+                stream.wait_event(ready.end)  # already met: orders the copy after it
+                host = [t.cpu().numpy() for t in tensors]
+    times.d2h_bytes += sum(a.nbytes for a in host)
+    if ready is not None:
+        times.device_us += ready.device_us()
+    return host
 
 
 def gmax_tier(gmax: int) -> int:
@@ -656,21 +768,26 @@ def _intersect_k_batch(
     gathered (B, capacity, g_i) rows are stacked.
     """
     tk = ts[-1]
-    passed = ops.bitmap_filter(_aligned_images(images, ts))    # (B, G)
-    G = passed.shape[1]
-    n_surv = passed.sum(dim=1)
-    surv = _first_survivors(passed, capacity)
-    valid_row = surv < G
-    surv_c = surv.clamp(max=G - 1)
-    base = _gather_survivor_rows(vals[0], surv_c, tk - ts[0])  # (B, cap, g0)
-    keep = valid_row[:, :, None] & (base != -1)
-    for v, t in zip(vals[1:], ts[1:]):
-        keep = keep & ops.group_match(
-            base, _gather_survivor_rows(v, surv_c, tk - t))     # (B, cap, g0)
-    r = keep.sum(dim=(1, 2))
-    overflow = n_surv > capacity
-    # pack values and mask into one buffer (-1 = dropped): one copy to host
-    packed = torch.where(keep, base, -1)
+    with profiler_range("phase1.stack"):
+        stacked = _aligned_images(images, ts)
+    with profiler_range("phase1.filter"):
+        passed = ops.bitmap_filter(stacked)                     # (B, G)
+        del stacked  # the stack is the pass's largest tensor: free it here
+        n_surv = passed.sum(dim=1)
+    with profiler_range("phase2"):
+        G = passed.shape[1]
+        surv = _first_survivors(passed, capacity)
+        valid_row = surv < G
+        surv_c = surv.clamp(max=G - 1)
+        base = _gather_survivor_rows(vals[0], surv_c, tk - ts[0])  # (B, cap, g0)
+        keep = valid_row[:, :, None] & (base != -1)
+        for v, t in zip(vals[1:], ts[1:]):
+            keep = keep & ops.group_match(
+                base, _gather_survivor_rows(v, surv_c, tk - t))     # (B, cap, g0)
+        r = keep.sum(dim=(1, 2))
+        overflow = n_surv > capacity
+        # pack values and mask into one buffer (-1 = dropped): one copy to host
+        packed = torch.where(keep, base, -1)
     return packed, r, n_surv, overflow
 
 
@@ -688,12 +805,14 @@ class PendingBatch:
     list of such events, one per device a sharded pass ran on.
     :meth:`collect` copies the results to the host (waiting on ``ready``
     only), runs any overflow re-run and returns exactly what
-    :func:`intersect_device_batch` returns; it is memoized.
+    :func:`intersect_device_batch` returns; it is memoized.  ``times``
+    records where the collect went (:class:`CollectTimes`).
     """
 
     n_queries: int
     handles: object = None
     ready: object = None
+    times: CollectTimes = dataclasses.field(default_factory=CollectTimes)
     _collect: Optional[Callable[[], List[Tuple[np.ndarray, Dict]]]] = None
     _results: Optional[List[Tuple[np.ndarray, Dict]]] = None
 
@@ -748,6 +867,7 @@ def dispatch_device_batch(
                 raise ValueError(f"set on {s.device}, bucket runs on {dev}")
     G = 1 << ts[-1]
     m, w = ordered[0][0].m, ordered[0][0].w
+    times = CollectTimes()
 
     def issue(active: List[int], cap: int):
         vals = [[ordered[i][j].vals for i in active] for j in range(len(ts))]
@@ -755,8 +875,9 @@ def dispatch_device_batch(
         EXEC_COUNTERS.bump("batch_calls")
         _note_specialization("batch_traces", _batch_spec(
             dev, ts, gmaxes, m, w, cap, len(active)))
+        start = _record_start(dev)
         handles = _intersect_k_batch(vals, images, ts, cap)
-        return handles, _record_ready(dev)
+        return handles, _record_ready(dev, start)
 
     first_active = list(range(len(ordered)))
     first_cap = capacity or default_capacity(ts)
@@ -767,24 +888,26 @@ def dispatch_device_batch(
         active, cap = first_active, first_cap
         handles, ready = first_handles, first_ready
         while True:
-            packed_h, r_h, n_surv_h, over_h = _to_host(handles, ready)
+            times.passes += 1
+            packed_h, r_h, n_surv_h, over_h = _to_host(handles, ready, times)
             rerun = []
-            for row, qi in enumerate(active):
-                if over_h[row]:
-                    rerun.append(qi)
-                    continue
-                row_vals = packed_h[row].ravel()
-                out = row_vals[row_vals != -1]
-                results[qi] = (
-                    np.sort(out.view(np.uint32)),
-                    {
-                        "group_tuples": G,
-                        "tuples_survived": int(n_surv_h[row]),
-                        "capacity": cap,
-                        "r": int(r_h[row]),
-                        "batch_size": len(active),
-                    },
-                )
+            with times.part("filter"):
+                for row, qi in enumerate(active):
+                    if over_h[row]:
+                        rerun.append(qi)
+                        continue
+                    row_vals = packed_h[row].ravel()
+                    out = row_vals[row_vals != -1]
+                    results[qi] = (
+                        np.sort(out.view(np.uint32)),
+                        {
+                            "group_tuples": G,
+                            "tuples_survived": int(n_surv_h[row]),
+                            "capacity": cap,
+                            "r": int(r_h[row]),
+                            "batch_size": len(active),
+                        },
+                    )
             if not rerun:
                 return results  # type: ignore[return-value]
             active = rerun
@@ -793,7 +916,7 @@ def dispatch_device_batch(
             handles, ready = issue(active, cap)  # the collecting thread's stream
 
     return PendingBatch(n_queries=len(ordered), handles=first_handles,
-                        ready=first_ready, _collect=collect)
+                        ready=first_ready, times=times, _collect=collect)
 
 
 def intersect_device_batch(
@@ -841,12 +964,14 @@ _FLAT_JOIN = (1, None, None, None)
 
 
 def _join_shards(outs: Sequence[Sequence[torch.Tensor]],
-                 devs: Sequence[torch.device], join: Sequence[Optional[int]]):
+                 devs: Sequence[torch.device], join: Sequence[Optional[int]],
+                 starts: Dict):
     """Join per-shard outputs device by device: ``outs[s]`` are shard s's
     output tensors on ``devs[s]``; output j of one device's shards is
     concatenated along ``join[j]``, or stacked on a new leading axis where
     that is None.  Returns ``[(tensors, ready), ...]``, one per device, each
-    with the event recorded after its own join."""
+    with the ready mark recorded after its own join, timed from that
+    device's event in ``starts`` (:func:`_record_starts`)."""
     by_dev: Dict[torch.device, List[int]] = {}
     for s, dev in enumerate(devs):
         by_dev.setdefault(dev, []).append(s)
@@ -856,15 +981,16 @@ def _join_shards(outs: Sequence[Sequence[torch.Tensor]],
             tensors = [torch.stack([outs[s][j] for s in ids]) if dim is None
                        else torch.cat([outs[s][j] for s in ids], dim=dim)
                        for j, dim in enumerate(join)]
-            joined.append((tensors, _record_ready(dev)))
+            joined.append((tensors, _record_ready(dev, starts[dev])))
     return joined
 
 
-def _fetch_joined(joined, join: Sequence[Optional[int]]) -> List[np.ndarray]:
+def _fetch_joined(joined, join: Sequence[Optional[int]],
+                  times: CollectTimes) -> List[np.ndarray]:
     """Host copies of a sharded pass's outputs: each device's join is copied
     after its own event (:func:`_to_host`), then the devices' copies are
     concatenated along the same axes."""
-    host = [_to_host(tensors, ready) for tensors, ready in joined]
+    host = [_to_host(tensors, ready, times) for tensors, ready in joined]
     if len(host) == 1:
         return host[0]
     return [np.concatenate([h[j] for h in host],
@@ -912,6 +1038,7 @@ def _intersect_k_sharded_batch(parts, ts: Tuple[int, ...],
     ``devs[s]`` (shards sharing a device run one after another on its
     current stream).  Returns the device joins of (packed (B, n * cap,
     g_0), r, n_surv, overflow (n, B))."""
+    starts = _record_starts(devs)
     outs = []
     for s, dev in enumerate(devs):
         with _on(dev):
@@ -919,7 +1046,7 @@ def _intersect_k_sharded_batch(parts, ts: Tuple[int, ...],
                 [[p[s][0] for p in per_query] for per_query in parts],
                 [[p[s][1] for p in per_query] for per_query in parts],
                 ts, capacity_per_shard))
-    return _join_shards(outs, devs, _FLAT_JOIN)
+    return _join_shards(outs, devs, _FLAT_JOIN, starts)
 
 
 def _flat_shard_result(packed_row: np.ndarray, r_col: np.ndarray,
@@ -968,6 +1095,7 @@ def dispatch_sharded_batch(
     G_local = G // n_shards
     m, w = ordered[0][0].m, ordered[0][0].w
     parts = [[_shard_parts(s, mesh, axis) for s in q] for q in ordered]
+    times = CollectTimes()
 
     def issue(active: List[int], cap: int):
         EXEC_COUNTERS.bump("sharded_calls")
@@ -986,16 +1114,19 @@ def dispatch_sharded_batch(
         results: List[Optional[Tuple[np.ndarray, Dict]]] = [None] * len(ordered)
         active, cap, joined = first_active, first_cap, first
         while True:
-            packed_h, r_h, n_surv_h, over_h = _fetch_joined(joined, _FLAT_JOIN)
+            times.passes += 1
+            packed_h, r_h, n_surv_h, over_h = _fetch_joined(joined, _FLAT_JOIN,
+                                                            times)
             rerun = []
-            for row, qi in enumerate(active):
-                if over_h[:, row].any():
-                    rerun.append(qi)
-                    continue
-                results[qi] = _flat_shard_result(
-                    packed_h[row], r_h[:, row], n_surv_h[:, row],
-                    group_tuples=G, capacity_per_shard=cap,
-                    n_shards=n_shards, batch_size=len(active))
+            with times.part("filter"):
+                for row, qi in enumerate(active):
+                    if over_h[:, row].any():
+                        rerun.append(qi)
+                        continue
+                    results[qi] = _flat_shard_result(
+                        packed_h[row], r_h[:, row], n_surv_h[:, row],
+                        group_tuples=G, capacity_per_shard=cap,
+                        n_shards=n_shards, batch_size=len(active))
             if not rerun:
                 return results  # type: ignore[return-value]
             active = rerun
@@ -1004,7 +1135,7 @@ def dispatch_sharded_batch(
             joined = issue(active, cap)
 
     return PendingBatch(n_queries=len(ordered), handles=first,
-                        ready=_events(first), _collect=collect)
+                        ready=_events(first), times=times, _collect=collect)
 
 
 def intersect_sharded_batch(
@@ -1096,6 +1227,7 @@ def dispatch_mesh2d_batch(
     G = 1 << ts[-1]
     G_local = G // n_shards
     m, w = ordered[0][0].m, ordered[0][0].w
+    times = CollectTimes()
 
     def issue(active: List[int], cap: int):
         slice_len, layout = _mesh2d_rows(n_replicas, len(active))
@@ -1114,11 +1246,12 @@ def dispatch_mesh2d_batch(
                     ts, mesh.axis_devices(axis), cap)
             else:
                 dev = _row_device(topology, rr, [s for per in rows for s in per])
+                starts = _record_starts([dev])
                 with _on(dev):
                     out = _intersect_k_batch(
                         [[s.vals for s in per] for per in rows],
                         [[s.images for s in per] for per in rows], ts, cap)
-                handles[rr] = _join_shards([out], [dev], _FLAT_JOIN)
+                handles[rr] = _join_shards([out], [dev], _FLAT_JOIN, starts)
         return handles, slice_len
 
     first_active = list(range(len(ordered)))
@@ -1132,20 +1265,23 @@ def dispatch_mesh2d_batch(
         handles, slice_len = first_handles, first_slice
         while True:
             # one collection point: every row was issued before any copy
+            times.passes += 1
             rerun = []
             for rr, joined in handles.items():
-                packed_h, r_h, n_surv_h, over_h = _fetch_joined(joined,
-                                                                _FLAT_JOIN)
-                for local in range(packed_h.shape[0]):
-                    qi = active[rr * slice_len + local]
-                    if over_h[:, local].any():
-                        rerun.append(qi)
-                        continue
-                    results[qi] = _flat_shard_result(
-                        packed_h[local], r_h[:, local], n_surv_h[:, local],
-                        group_tuples=G, capacity_per_shard=cap,
-                        n_shards=n_shards, n_replicas=n_replicas, replica=rr,
-                        batch_size=len(active))
+                packed_h, r_h, n_surv_h, over_h = _fetch_joined(
+                    joined, _FLAT_JOIN, times)
+                with times.part("filter"):
+                    for local in range(packed_h.shape[0]):
+                        qi = active[rr * slice_len + local]
+                        if over_h[:, local].any():
+                            rerun.append(qi)
+                            continue
+                        results[qi] = _flat_shard_result(
+                            packed_h[local], r_h[:, local],
+                            n_surv_h[:, local], group_tuples=G,
+                            capacity_per_shard=cap, n_shards=n_shards,
+                            n_replicas=n_replicas, replica=rr,
+                            batch_size=len(active))
             if not rerun:
                 return results  # type: ignore[return-value]
             active = rerun
@@ -1156,7 +1292,7 @@ def dispatch_mesh2d_batch(
     return PendingBatch(
         n_queries=len(ordered), handles=first_handles,
         ready=[e for joined in first_handles.values() for e in _events(joined)],
-        _collect=collect)
+        times=times, _collect=collect)
 
 
 def intersect_mesh2d_batch(
@@ -1322,15 +1458,18 @@ def dispatch_expr_batch(
             if s.device != dev:
                 raise ValueError(f"set on {s.device}, bucket runs on {dev}")
     total = expr_total_width(ts, gmaxes)
+    times = CollectTimes()
 
     def issue(active: List[int], cap: int):
         vals = [[ordered[i][j].vals for i in active] for j in range(len(ts))]
         EXEC_COUNTERS.bump("expr_calls")
         _note_specialization("expr_traces", _expr_spec(
             dev, eshape, ts, gmaxes, cap, len(active)))
+        start = _record_start(dev)
         root, r, max_count, overflow, subs = _eval_expr_batch(vals, eshape,
                                                                cap)
-        return [root, r, max_count, overflow, *subs], _record_ready(dev)
+        return ([root, r, max_count, overflow, *subs],
+                _record_ready(dev, start))
 
     first_active = list(range(len(ordered)))
     first_cap = min(capacity or default_expr_capacity(ts, gmaxes), total)
@@ -1341,25 +1480,28 @@ def dispatch_expr_batch(
         active, cap = first_active, first_cap
         handles, ready = first_handles, first_ready
         while True:
-            root_h, r_h, maxc_h, over_h, *subs_h = _to_host(handles, ready)
+            times.passes += 1
+            root_h, r_h, maxc_h, over_h, *subs_h = _to_host(handles, ready,
+                                                            times)
             rerun = []
-            for row, qi in enumerate(active):
-                if over_h[row]:
-                    rerun.append(qi)
-                    continue
-                stats = {
-                    "expr_width": total,
-                    "tuples_survived": int(maxc_h[row]),
-                    "capacity": cap,
-                    "r": int(r_h[row]),
-                    "batch_size": len(active),
-                }
-                if sub_keys is not None:
-                    stats["subexprs"] = [
-                        (key, _compact_u32(sub[row]))
-                        for key, sub in zip(sub_keys[qi], subs_h)
-                    ]
-                results[qi] = (_compact_u32(root_h[row]), stats)
+            with times.part("filter"):
+                for row, qi in enumerate(active):
+                    if over_h[row]:
+                        rerun.append(qi)
+                        continue
+                    stats = {
+                        "expr_width": total,
+                        "tuples_survived": int(maxc_h[row]),
+                        "capacity": cap,
+                        "r": int(r_h[row]),
+                        "batch_size": len(active),
+                    }
+                    if sub_keys is not None:
+                        stats["subexprs"] = [
+                            (key, _compact_u32(sub[row]))
+                            for key, sub in zip(sub_keys[qi], subs_h)
+                        ]
+                    results[qi] = (_compact_u32(root_h[row]), stats)
             if not rerun:
                 return results  # type: ignore[return-value]
             active = rerun
@@ -1368,7 +1510,7 @@ def dispatch_expr_batch(
             handles, ready = issue(active, cap)  # the collecting thread's stream
 
     return PendingBatch(n_queries=len(ordered), handles=first_handles,
-                        ready=first_ready, _collect=collect)
+                        ready=first_ready, times=times, _collect=collect)
 
 
 def intersect_expr_batch(
@@ -1403,6 +1545,7 @@ def _eval_expr_sharded_batch(parts, eshape, devs: Sequence[torch.device],
     on its z-slices (``g`` aligns every leaf, so ∪/∩/∖ distribute over
     z-ranges).  Returns the device joins of (root, r, max_count, overflow,
     *subs)."""
+    starts = _record_starts(devs)
     outs = []
     for s, dev in enumerate(devs):
         with _on(dev):
@@ -1410,7 +1553,7 @@ def _eval_expr_sharded_batch(parts, eshape, devs: Sequence[torch.device],
                 [[p[s][0] for p in per_query] for per_query in parts],
                 eshape, capacity_per_shard)
             outs.append((root, r, maxc, over, *subs))
-    return _join_shards(outs, devs, _expr_join(len(outs[0])))
+    return _join_shards(outs, devs, _expr_join(len(outs[0])), starts)
 
 
 def _expr_shard_results(fetched, rows, sub_keys, **stats):
@@ -1467,6 +1610,7 @@ def dispatch_expr_sharded_batch(
     total = expr_total_width(ts, gmaxes)
     local_total = total // n_shards
     parts = [[_shard_parts(s, mesh, axis) for s in q] for q in ordered]
+    times = CollectTimes()
 
     def issue(active: List[int], cap: int):
         EXEC_COUNTERS.bump("expr_calls")
@@ -1485,11 +1629,14 @@ def dispatch_expr_sharded_batch(
         results: Dict[int, Tuple[np.ndarray, Dict]] = {}
         active, cap, joined = first_active, first_cap, first
         while True:
-            fetched = _fetch_joined(joined, _expr_join(len(joined[0][0])))
-            out, rerun = _expr_shard_results(
-                fetched, list(enumerate(active)), sub_keys, expr_width=total,
-                capacity_per_shard=cap, n_shards=n_shards,
-                batch_size=len(active))
+            times.passes += 1
+            fetched = _fetch_joined(joined, _expr_join(len(joined[0][0])),
+                                    times)
+            with times.part("filter"):
+                out, rerun = _expr_shard_results(
+                    fetched, list(enumerate(active)), sub_keys,
+                    expr_width=total, capacity_per_shard=cap,
+                    n_shards=n_shards, batch_size=len(active))
             results.update(out)
             if not rerun:
                 return [results[qi] for qi in range(len(ordered))]
@@ -1499,7 +1646,7 @@ def dispatch_expr_sharded_batch(
             joined = issue(active, cap)
 
     return PendingBatch(n_queries=len(ordered), handles=first,
-                        ready=_events(first), _collect=collect)
+                        ready=_events(first), times=times, _collect=collect)
 
 
 def dispatch_expr_mesh2d_batch(
@@ -1524,6 +1671,7 @@ def dispatch_expr_mesh2d_batch(
     ts, gmaxes = _expr_mesh_signature(ordered, n_shards)
     total = expr_total_width(ts, gmaxes)
     local_total = total // n_shards
+    times = CollectTimes()
 
     def issue(active: List[int], cap: int):
         slice_len, layout = _mesh2d_rows(n_replicas, len(active))
@@ -1543,11 +1691,13 @@ def dispatch_expr_mesh2d_batch(
                 dev = _row_device(topology, rr, [s for per in rows for s in per])
                 _note_specialization("expr_traces", _expr_spec(
                     dev, eshape, ts, gmaxes, cap, slice_len))
+                starts = _record_starts([dev])
                 with _on(dev):
                     root, r, maxc, over, subs = _eval_expr_batch(
                         [[s.vals for s in per] for per in rows], eshape, cap)
                 out = (root, r, maxc, over, *subs)
-                handles[rr] = _join_shards([out], [dev], _expr_join(len(out)))
+                handles[rr] = _join_shards([out], [dev], _expr_join(len(out)),
+                                           starts)
         return handles, slice_len
 
     first_active = list(range(len(ordered)))
@@ -1560,16 +1710,20 @@ def dispatch_expr_mesh2d_batch(
         active, cap = first_active, first_cap
         handles, slice_len = first_handles, first_slice
         while True:
+            times.passes += 1
             rerun = []
             for rr, joined in handles.items():
-                fetched = _fetch_joined(joined, _expr_join(len(joined[0][0])))
+                fetched = _fetch_joined(joined, _expr_join(len(joined[0][0])),
+                                        times)
                 lo = rr * slice_len
                 rows = [(local, active[lo + local])
                         for local in range(fetched[0].shape[0])]
-                out, more = _expr_shard_results(
-                    fetched, rows, sub_keys, expr_width=total,
-                    capacity_per_shard=cap, n_shards=n_shards,
-                    n_replicas=n_replicas, replica=rr, batch_size=len(active))
+                with times.part("filter"):
+                    out, more = _expr_shard_results(
+                        fetched, rows, sub_keys, expr_width=total,
+                        capacity_per_shard=cap, n_shards=n_shards,
+                        n_replicas=n_replicas, replica=rr,
+                        batch_size=len(active))
                 results.update(out)
                 rerun += more
             if not rerun:
@@ -1582,7 +1736,7 @@ def dispatch_expr_mesh2d_batch(
     return PendingBatch(
         n_queries=len(ordered), handles=first_handles,
         ready=[e for joined in first_handles.values() for e in _events(joined)],
-        _collect=collect)
+        times=times, _collect=collect)
 
 
 def intersect_expr_sharded_batch(queries, eshape, mesh: Mesh,
@@ -1684,14 +1838,17 @@ def _intersect_count_batch(table: CountTable, k_sel: int) -> torch.Tensor:
 
 
 def _collect_count(pairs: torch.Tensor, ready, queries, k_sel: int,
-                   extra_stats: Dict) -> List[Tuple[np.ndarray, Dict]]:
+                   extra_stats: Dict,
+                   times: CollectTimes) -> List[Tuple[np.ndarray, Dict]]:
     """One copy of the (B, k_sel, 2) pairs to the host, split per row."""
-    fetched, = _to_host([pairs], ready)
-    return [
-        (fetched[row], {"n_cands": len(cands), "k_sel": k_sel,
-                        "batch_size": len(queries), **extra_stats})
-        for row, (_, cands) in enumerate(queries)
-    ]
+    times.passes += 1
+    fetched, = _to_host([pairs], ready, times)
+    with times.part("filter"):
+        return [
+            (fetched[row], {"n_cands": len(cands), "k_sel": k_sel,
+                            "batch_size": len(queries), **extra_stats})
+            for row, (_, cands) in enumerate(queries)
+        ]
 
 
 def dispatch_count_batch(
@@ -1718,18 +1875,21 @@ def dispatch_count_batch(
     if queries[0][0].device != dev:
         raise ValueError(f"set on {queries[0][0].device}, bucket runs on {dev}")
     k_sel = min(int(k), c_tier)
+    start = _record_start(dev)
     table = _pack_count_rows(queries, c_tier)
     EXEC_COUNTERS.bump("count_calls")
     _note_specialization("count_traces", _count_spec(
         dev, ts, _count_gmaxes(queries), c_tier, k_sel, len(queries)))
     pairs = _intersect_count_batch(table, k_sel)
-    ready = _record_ready(dev)
+    ready = _record_ready(dev, start)
     extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts)}
+    times = CollectTimes()
     # the captured ``queries`` hold every mirror the table names until the
     # collect's copy has waited for the pass
     return PendingBatch(
-        n_queries=len(queries), handles=pairs, ready=ready,
-        _collect=lambda: _collect_count(pairs, ready, queries, k_sel, extra))
+        n_queries=len(queries), handles=pairs, ready=ready, times=times,
+        _collect=lambda: _collect_count(pairs, ready, queries, k_sel, extra,
+                                        times))
 
 
 def intersect_count_batch(
@@ -1787,11 +1947,12 @@ def _sharded_count_pass(queries, ts, c_tier: int, k_sel: int, mesh: Mesh,
                         axis: str):
     """Counts summed over ``mesh``'s shards, then the top-K per row on shard
     0's device: ((B, k_sel, 2) pairs, their ready event, the tables)."""
+    start = _record_start(mesh.axis_devices(axis)[0])
     counts, real, tables = _sum_shard_counts(queries, ts, c_tier, mesh, axis)
     dev = counts.device
     with _on(dev):
         pairs = _top_k_slots(torch.where(real, counts, -1), k_sel)
-        return pairs, _record_ready(dev), tables
+        return pairs, _record_ready(dev, start), tables
 
 
 def dispatch_count_sharded_batch(
@@ -1823,9 +1984,12 @@ def dispatch_count_sharded_batch(
                                                mesh, axis)
     extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts),
              "n_shards": n_shards}
+    times = CollectTimes()
     return PendingBatch(
         n_queries=len(queries), handles=(pairs, tables), ready=ready,
-        _collect=lambda: _collect_count(pairs, ready, queries, k_sel, extra))
+        times=times,
+        _collect=lambda: _collect_count(pairs, ready, queries, k_sel, extra,
+                                        times))
 
 
 def intersect_count_sharded_batch(
@@ -1879,27 +2043,31 @@ def dispatch_count_mesh2d_batch(
                                              for s in (p, *cands)])
             _note_specialization("count_traces", _count_spec(
                 dev, ts, gmaxes, c_tier, k_sel, slice_len))
+            start = _record_start(dev)
             with _on(dev):
                 table = _pack_count_rows(rows, c_tier)
                 pairs = _intersect_count_batch(table, k_sel)
-                handles[rr] = (pairs, _record_ready(dev), [table])
+                handles[rr] = (pairs, _record_ready(dev, start), [table])
     extra = {"c_tier": c_tier, "group_tuples": 1 << max(ts),
              "n_shards": n_shards, "n_replicas": n_replicas}
+    times = CollectTimes()
 
     def collect() -> List[Tuple[np.ndarray, Dict]]:
-        fetched = {rr: _to_host([pairs], ready)[0]
+        times.passes += 1
+        fetched = {rr: _to_host([pairs], ready, times)[0]
                    for rr, (pairs, ready, _) in handles.items()}
-        out = []
-        for qi, (_, cands) in enumerate(queries):
-            rr, row = divmod(qi, slice_len)
-            out.append((fetched[rr][row], {
-                "n_cands": len(cands), "k_sel": k_sel,
-                "batch_size": len(queries), **extra, "replica": rr}))
+        with times.part("filter"):
+            out = []
+            for qi, (_, cands) in enumerate(queries):
+                rr, row = divmod(qi, slice_len)
+                out.append((fetched[rr][row], {
+                    "n_cands": len(cands), "k_sel": k_sel,
+                    "batch_size": len(queries), **extra, "replica": rr}))
         return out
 
     return PendingBatch(n_queries=len(queries), handles=handles,
                         ready=[ready for _, ready, _ in handles.values()],
-                        _collect=collect)
+                        times=times, _collect=collect)
 
 
 def intersect_count_mesh2d_batch(

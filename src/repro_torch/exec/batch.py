@@ -38,16 +38,23 @@ so it does not queue behind the buckets dispatched after it.  With a
 to it.  ``EXEC_COUNTERS`` tracks the window: ``inflight_dispatches`` per
 dispatched bucket, ``inflight_collects`` per one-shot teardown (equal
 after a drain), ``overlap_high_water`` (most buckets in flight at once),
-``collect_us`` (blocking collect time) and ``dispatch_failures`` (buckets
-whose dispatch or collect raised).
+``collect_us`` (blocking collect time) with its parts
+``collect_wait_us`` / ``collect_copy_us`` / ``collect_filter_us``, the
+bytes copied to the host (``d2h_bytes``) and the passes' device-clock
+time (``pass_device_us``), all in one ``bump_many`` a collect, and
+``dispatch_failures`` (buckets whose dispatch or collect raised).
 
 With an ``obs`` (:class:`repro_torch.obs.Obs`) a bucket also reports
 through it: the in-flight gauge and its high water, the dispatch-to-collect
 latency, batch-size and survivor histograms, the per-signature profile
 store, and, with its tracer on, a ``bucket`` span with ``dispatch``,
 ``device`` and ``collect`` children.  ``device`` runs from the end of
-dispatch to the start of collect: host time while the card works, the same
-boundaries as the JAX package's span (no CUDA event is read for it).
+dispatch to the start of collect on the host clock, the same boundaries as
+the JAX package's span: host time while the card works, not device
+compute.  Its ``device_us`` attribute is the device-clock time of the
+bucket's passes (``pass_device_us``), ``passes`` their number.
+``collect`` has a ``wait``, ``copy`` and ``filter`` child for each of its
+parts, in order (:class:`~repro_torch.core.engine.CollectTimes`).
 """
 from __future__ import annotations
 
@@ -70,6 +77,7 @@ from ..core.engine import (
 )
 from ..device import Device
 from ..obs.profile import sig_label
+from ..obs.trace import profiler_range
 from .expr import subexpr_keys
 from .plan import QueryPlan, ShapeSig, plan_query
 
@@ -130,7 +138,9 @@ class InFlightBucket:
 
     With ``obs`` the bucket enters the in-flight gauge at once and, with
     the tracer on, opens its ``bucket`` span backdated to
-    ``dispatched_at`` with the ``dispatch`` child already closed.
+    ``dispatched_at`` with the ``dispatch`` child already closed.  Its
+    ``device`` child is host time from the end of dispatch to the start of
+    collect; the passes' device-clock time is its ``device_us``.
     """
 
     def __init__(self, sig: ShapeSig, items: Sequence[Tuple[int, QueryPlan]],
@@ -191,10 +201,12 @@ class InFlightBucket:
     def collect(self) -> Dict[int, Tuple[np.ndarray, Dict]]:
         """Block for the bucket's results: {query_index: (values, stats)}.
         Stamps ``batch_us`` (and the ``replica`` of a placed bucket), adds
-        the blocking time to ``collect_us`` and feeds the capacity model.
-        With ``obs``: the latency, batch-size and survivor observations,
-        the profile sample, and the ``device`` and ``collect`` children
-        that close the bucket span."""
+        the blocking time to ``collect_us``, with its parts, bytes and
+        device time, and feeds the capacity model.  With ``obs``: the
+        latency, batch-size and survivor observations, the profile sample,
+        and the ``device`` and ``collect`` children (the latter with its
+        ``wait`` / ``copy`` / ``filter`` children) that close the bucket
+        span."""
         if self._out is not None:
             return self._out
         c0 = time.perf_counter()
@@ -205,7 +217,9 @@ class InFlightBucket:
             raise
         self._finish()
         c1 = time.perf_counter()
-        EXEC_COUNTERS.bump("collect_us", int((c1 - c0) * 1e6))
+        times = self.pending.times
+        EXEC_COUNTERS.bump_many({"collect_us": int((c1 - c0) * 1e6),
+                                 **times.counters()})
         us = (c1 - self.dispatched_at) * 1e6
         out: Dict[int, Tuple[np.ndarray, Dict]] = {}
         for (qi, _), (values, stats) in zip(self.items, results):
@@ -224,11 +238,15 @@ class InFlightBucket:
                     self.obs.survivors.observe(stats["r"])
             self.obs.profile.observe(self.sig, len(self.items), us)
             if self.span is not None:
-                self.obs.tracer.span_at(
+                tracer = self.obs.tracer
+                tracer.span_at(
                     "device", self.dispatch_end_at * 1e6, c0 * 1e6,
-                    parent=self.span)
-                self.obs.tracer.span_at(
+                    parent=self.span, device_us=times.device_us,
+                    passes=times.passes)
+                collect = tracer.span_at(
                     "collect", c0 * 1e6, c1 * 1e6, parent=self.span)
+                for name, t0, t1 in times.parts:
+                    tracer.span_at(name, t0 * 1e6, t1 * 1e6, parent=collect)
                 self.span.end()
         self._out = out
         return out
@@ -296,85 +314,86 @@ def dispatch_bucket(
     if sharded and mesh is None:
         raise ValueError("a sharded bucket needs the engine's mesh")
     try:
-        if sig.eshape is not None:
-            # plan.terms IS the leaf traversal order: never re-sorted
-            sub_keys = [subexpr_keys(plan.expr) for _, plan in items]
+        with profiler_range("bucket.dispatch"):
+            if sig.eshape is not None:
+                # plan.terms IS the leaf traversal order: never re-sorted
+                sub_keys = [subexpr_keys(plan.expr) for _, plan in items]
 
-            def rows(get):
-                return [[get(t) for t in plan.terms] for _, plan in items]
+                def rows(get):
+                    return [[get(t) for t in plan.terms] for _, plan in items]
 
-            if mesh_routed or sharded:
-                cap = default_expr_capacity_per_shard(
-                    sig.ts, sig.gmaxes, sig.shards,
-                    capacity=sig.capacity_tier)
-            if mesh_routed:
-                pending = dispatch_expr_mesh2d_batch(
-                    rows(resolve), sig.eshape, topology,
-                    capacity_per_shard=cap, sub_keys=sub_keys)
-            elif sharded:
-                pending = dispatch_expr_sharded_batch(
-                    rows(resolve), sig.eshape, mesh, axis=shard_axis,
-                    capacity_per_shard=cap, sub_keys=sub_keys)
-            elif placed:
-                weight = float(len(items)
-                               * expr_total_width(sig.ts, sig.gmaxes))
-                pending, replica = _placed(
-                    topology, weight, lambda r: dispatch_expr_batch(
-                        rows(lambda t: get_replica_set(r, t)), sig.eshape,
-                        capacity=sig.capacity_tier, sub_keys=sub_keys,
-                        device=topology.replica_device(r)))
+                if mesh_routed or sharded:
+                    cap = default_expr_capacity_per_shard(
+                        sig.ts, sig.gmaxes, sig.shards,
+                        capacity=sig.capacity_tier)
+                if mesh_routed:
+                    pending = dispatch_expr_mesh2d_batch(
+                        rows(resolve), sig.eshape, topology,
+                        capacity_per_shard=cap, sub_keys=sub_keys)
+                elif sharded:
+                    pending = dispatch_expr_sharded_batch(
+                        rows(resolve), sig.eshape, mesh, axis=shard_axis,
+                        capacity_per_shard=cap, sub_keys=sub_keys)
+                elif placed:
+                    weight = float(len(items)
+                                   * expr_total_width(sig.ts, sig.gmaxes))
+                    pending, replica = _placed(
+                        topology, weight, lambda r: dispatch_expr_batch(
+                            rows(lambda t: get_replica_set(r, t)), sig.eshape,
+                            capacity=sig.capacity_tier, sub_keys=sub_keys,
+                            device=topology.replica_device(r)))
+                else:
+                    pending = dispatch_expr_batch(
+                        rows(get_set), sig.eshape, capacity=sig.capacity_tier,
+                        sub_keys=sub_keys, device=device)
+            elif sig.cands > 0:
+                # plan.terms is (probe, *candidates), candidates ascending: the
+                # order the count pass's tie-break reads as "smallest id first"
+                def rows(get):
+                    return [(get(plan.terms[0]), [get(t) for t in plan.terms[1:]])
+                            for _, plan in items]
+
+                k = sig.capacity_tier
+                if mesh_routed:
+                    pending = dispatch_count_mesh2d_batch(rows(resolve), k,
+                                                          topology)
+                elif sharded:
+                    pending = dispatch_count_sharded_batch(rows(resolve), k, mesh,
+                                                           axis=shard_axis)
+                elif placed:
+                    weight = float(len(items) * sig.cands * (1 << max(sig.ts)))
+                    pending, replica = _placed(
+                        topology, weight, lambda r: dispatch_count_batch(
+                            rows(lambda t: get_replica_set(r, t)), k,
+                            device=topology.replica_device(r)))
+                else:
+                    pending = dispatch_count_batch(rows(get_set), k,
+                                                   device=device)
             else:
-                pending = dispatch_expr_batch(
-                    rows(get_set), sig.eshape, capacity=sig.capacity_tier,
-                    sub_keys=sub_keys, device=device)
-        elif sig.cands > 0:
-            # plan.terms is (probe, *candidates), candidates ascending: the
-            # order the count pass's tie-break reads as "smallest id first"
-            def rows(get):
-                return [(get(plan.terms[0]), [get(t) for t in plan.terms[1:]])
-                        for _, plan in items]
+                def rows(get):
+                    return [[get(t) for t in plan.terms] for _, plan in items]
 
-            k = sig.capacity_tier
-            if mesh_routed:
-                pending = dispatch_count_mesh2d_batch(rows(resolve), k,
-                                                      topology)
-            elif sharded:
-                pending = dispatch_count_sharded_batch(rows(resolve), k, mesh,
-                                                       axis=shard_axis)
-            elif placed:
-                weight = float(len(items) * sig.cands * (1 << max(sig.ts)))
-                pending, replica = _placed(
-                    topology, weight, lambda r: dispatch_count_batch(
-                        rows(lambda t: get_replica_set(r, t)), k,
-                        device=topology.replica_device(r)))
-            else:
-                pending = dispatch_count_batch(rows(get_set), k,
-                                               device=device)
-        else:
-            def rows(get):
-                return [[get(t) for t in plan.terms] for _, plan in items]
-
-            if mesh_routed or sharded:
-                cap = default_capacity_per_shard(sig.ts, sig.shards,
-                                                 capacity=sig.capacity_tier)
-            if mesh_routed:
-                pending = dispatch_mesh2d_batch(rows(resolve), topology,
-                                                capacity_per_shard=cap)
-            elif sharded:
-                pending = dispatch_sharded_batch(rows(resolve), mesh,
-                                                 axis=shard_axis,
-                                                 capacity_per_shard=cap)
-            elif placed:
-                weight = float(len(items) * (1 << sig.ts[-1]))  # B * G rows
-                pending, replica = _placed(
-                    topology, weight, lambda r: dispatch_device_batch(
-                        rows(lambda t: get_replica_set(r, t)),
-                        capacity=sig.capacity_tier,
-                        device=topology.replica_device(r)))
-            else:
-                pending = dispatch_device_batch(rows(get_set),
-                                                capacity=sig.capacity_tier,
-                                                device=device)
+                if mesh_routed or sharded:
+                    cap = default_capacity_per_shard(sig.ts, sig.shards,
+                                                     capacity=sig.capacity_tier)
+                if mesh_routed:
+                    pending = dispatch_mesh2d_batch(rows(resolve), topology,
+                                                    capacity_per_shard=cap)
+                elif sharded:
+                    pending = dispatch_sharded_batch(rows(resolve), mesh,
+                                                     axis=shard_axis,
+                                                     capacity_per_shard=cap)
+                elif placed:
+                    weight = float(len(items) * (1 << sig.ts[-1]))  # B * G rows
+                    pending, replica = _placed(
+                        topology, weight, lambda r: dispatch_device_batch(
+                            rows(lambda t: get_replica_set(r, t)),
+                            capacity=sig.capacity_tier,
+                            device=topology.replica_device(r)))
+                else:
+                    pending = dispatch_device_batch(rows(get_set),
+                                                    capacity=sig.capacity_tier,
+                                                    device=device)
     except BaseException:
         EXEC_COUNTERS.bump("dispatch_failures")
         if obs is not None:

@@ -36,19 +36,20 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
-from ..core.engine import EXEC_COUNTERS
 from .export import (SnapshotRing, parse_json, parse_prometheus, to_json,
                      to_prometheus)
 from .profile import ProfileStore, sig_label
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        default_latency_buckets, pow2_buckets)
-from .trace import NULL_SPAN, NullSpan, Span, Tracer, format_trace
+from .trace import (NULL_SPAN, NullSpan, Span, Tracer, format_trace,
+                    profiler_range)
 
 __all__ = [
     "Obs", "get_obs", "set_obs", "reset_obs",
     "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "default_latency_buckets", "pow2_buckets",
     "Tracer", "Span", "NullSpan", "NULL_SPAN", "format_trace",
+    "profiler_range",
     "ProfileStore", "sig_label",
     "SnapshotRing", "to_prometheus", "to_json", "parse_prometheus",
     "parse_json",
@@ -57,7 +58,10 @@ __all__ = [
 
 def _exec_collector() -> Dict[str, float]:
     """The port's ``EXEC_COUNTERS`` as one atomic snapshot, keyed under
-    ``exec_`` for the typed exposition."""
+    ``exec_`` for the typed exposition.  Imported here, as
+    ``core.engine`` imports this package's tracer."""
+    from ..core.engine import EXEC_COUNTERS
+
     return {f"exec_{k}": float(v)
             for k, v in EXEC_COUNTERS.snapshot().items()}
 

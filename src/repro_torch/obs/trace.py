@@ -13,6 +13,12 @@ them.  Counters cannot show where one request's time went; spans can.
   admission}; bucket -> {dispatch, device, collect}.
 - The clock is ``time.perf_counter`` in microseconds (injectable).
 
+Where a ``torch.profiler`` is recording, :func:`profiler_range` opens a
+``record_function`` range at the program's own sites (``search.*``,
+``bucket.dispatch``, ``phase1.*``, ``phase2``, ``collect.*``,
+``host_plan``), so they sit in the profiler's trace beside the kernels;
+with no profiler recording it opens nothing.
+
 The disabled tracer (the default) returns the shared :data:`NULL_SPAN` from
 every call: no allocation, no lock, no record.  The enabled tracer takes one
 lock per span start and one per end; finished spans go into a bounded ring.
@@ -20,12 +26,16 @@ Open spans are held by id, so :meth:`Tracer.open_count` finds leaks.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["Span", "NullSpan", "NULL_SPAN", "Tracer", "format_trace"]
+import torch
+
+__all__ = ["Span", "NullSpan", "NULL_SPAN", "Tracer", "format_trace",
+           "profiler_range"]
 
 _ids = itertools.count(1)
 
@@ -121,6 +131,19 @@ class NullSpan:
 
 
 NULL_SPAN = NullSpan()
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler is recording, so that the site shows in its trace (with a
+    ``gpu_user_annotation`` twin on the device timeline); otherwise a
+    shared no-op context, and no range is opened.  The profiler's state is
+    read once a call."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
 
 
 class Tracer:

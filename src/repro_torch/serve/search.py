@@ -66,7 +66,7 @@ from ..exec.expr import (
     And, Diff, Expr, Or, Term, canonicalize, eval_host, expr_key,
 )
 from ..exec.plan import QueryPlan, ShapeSig, plan_query, plan_suggest
-from ..obs import get_obs, sig_label
+from ..obs import get_obs, profiler_range, sig_label
 from .admission import AdmissionQueue, Ticket
 
 __all__ = ["AsyncSearchEngine", "QueryResult", "SearchEngine",
@@ -359,25 +359,27 @@ class SearchEngine:
         """Run one non-device plan: ``empty``, ``hashbin``, or ``host`` (an
         expression evaluated on the host, ``expr/host``, or a conjunction
         through RanGroupScan, ``rangroupscan``).  ``latency_us`` is the
-        query's host wall time; no ``EXEC_COUNTERS`` move (they count
-        device work)."""
-        if plan.algorithm == "empty":
-            return QueryResult(np.empty(0, np.uint32), 0.0, "empty", {})
-        if plan.expr is not None:
-            t0 = time.perf_counter()
-            res = eval_host(plan.expr, lambda t: self.index[t].values)
-            dt = (time.perf_counter() - t0) * 1e6
-            return QueryResult(res, dt, "expr/host", {"r": len(res)})
-        idxs = [self.index[t] for t in plan.terms]
+        query's host wall time (0 for ``empty``), which is also added to
+        ``EXEC_COUNTERS["host_plan_us"]``; no other counter moves (they
+        count device work)."""
         t0 = time.perf_counter()
-        if plan.algorithm == "hashbin":
-            res, stats = hashbin(idxs[0], idxs[1])
-            name = "hashbin"
+        if plan.algorithm == "empty":
+            res, name, stats = np.empty(0, np.uint32), "empty", {}
+        elif plan.expr is not None:
+            res = eval_host(plan.expr, lambda t: self.index[t].values)
+            name, stats = "expr/host", {"r": len(res)}
         else:
-            res, stats = rangroupscan(idxs)
-            name = "rangroupscan"
+            idxs = [self.index[t] for t in plan.terms]
+            if plan.algorithm == "hashbin":
+                res, found = hashbin(idxs[0], idxs[1])
+                name = "hashbin"
+            else:
+                res, found = rangroupscan(idxs)
+                name = "rangroupscan"
+            stats = found.__dict__
         dt = (time.perf_counter() - t0) * 1e6
-        return QueryResult(res, dt, name, stats.__dict__)
+        EXEC_COUNTERS.bump("host_plan_us", int(dt))
+        return QueryResult(res, 0.0 if name == "empty" else dt, name, stats)
 
     def query(self, terms) -> QueryResult:
         """Serve one query (a term list, an ``Expr`` or a ``parse``
@@ -392,35 +394,41 @@ class SearchEngine:
         runs as ONE pass (plus rare overflow re-runs), each bumping
         ``EXEC_COUNTERS["batch_calls"]`` (``"expr_calls"`` for expression
         buckets), reporting through ``obs``.  HashBin and host plans run
-        per query on the host.  Cache hits
+        per query on the host, each in a ``host_plan`` root span (with its
+        ``algorithm``) when the tracer is on.  Cache hits
         (and expressions merged from cached subexpressions) are answered in
         place; misses are inserted after execution.
         """
-        gen = self.cache.generation  # results compute against THIS index
-        plans = [self.plan(q) for q in queries]
-        results: List[Optional[QueryResult]] = [None] * len(queries)
-        device_plans: List[Tuple[int, QueryPlan]] = []
-        for i, plan in enumerate(plans):
-            cached = self._cached_result(plan)
-            if cached is not None:
-                results[i] = cached
-            elif plan.algorithm == "device":
-                device_plans.append((i, plan))
-            else:
-                results[i] = self._execute_host_plan(plan)
-                self._store(plan, results[i], generation=gen)
-        if device_plans:
-            by_index = execute_plan_buckets(
-                self.device.sets.__getitem__, device_plans,
-                device=self.device.device,
-                capacity_model=self.capacity_model, obs=self.obs,
-                **self.device.routing())
-            for i, plan in device_plans:
-                res, stats = by_index[i]
-                results[i] = QueryResult(res, stats.get("batch_us", 0.0),
-                                         _device_result_name(stats), stats)
-                self._store(plan, results[i], generation=gen)
-        return results  # type: ignore[return-value]
+        with profiler_range("search.query_batch"):
+            gen = self.cache.generation  # results compute against THIS index
+            with profiler_range("search.plan"):
+                plans = [self.plan(q) for q in queries]
+            results: List[Optional[QueryResult]] = [None] * len(queries)
+            device_plans: List[Tuple[int, QueryPlan]] = []
+            for i, plan in enumerate(plans):
+                cached = self._cached_result(plan)
+                if cached is not None:
+                    results[i] = cached
+                elif plan.algorithm == "device":
+                    device_plans.append((i, plan))
+                else:
+                    with self.obs.tracer.start("host_plan") as span, \
+                            profiler_range("host_plan"):
+                        results[i] = self._execute_host_plan(plan)
+                        span.set(algorithm=results[i].algorithm)
+                    self._store(plan, results[i], generation=gen)
+            if device_plans:
+                by_index = execute_plan_buckets(
+                    self.device.sets.__getitem__, device_plans,
+                    device=self.device.device,
+                    capacity_model=self.capacity_model, obs=self.obs,
+                    **self.device.routing())
+                for i, plan in device_plans:
+                    res, stats = by_index[i]
+                    results[i] = QueryResult(res, stats.get("batch_us", 0.0),
+                                             _device_result_name(stats), stats)
+                    self._store(plan, results[i], generation=gen)
+            return results  # type: ignore[return-value]
 
     def _store(self, plan: QueryPlan, result: QueryResult,
                generation: Optional[int] = None) -> None:

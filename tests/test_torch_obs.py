@@ -12,6 +12,10 @@ a failed bucket) and must give equal span forests (ids and times dropped,
 cross-links mapped), equal histogram counts and equal counters.  A traced
 ``SuggestEngine`` and a 2x2 topology (the JAX side in a subprocess with
 eight forced host devices) are held to the same.  Exact unless stated.
+
+The port's own spans and attributes (:data:`PORT_ONLY_SPANS`,
+:data:`PORT_ONLY_ATTRS`) and counters (:data:`PORT_ONLY_COUNTERS`) are
+dropped before a comparison and checked on their own.
 """
 import re
 import threading
@@ -49,11 +53,22 @@ from repro_torch.serve.search import (
 
 CPU = "cpu"
 # counters only the port keeps
-PORT_ONLY_COUNTERS = {"warm_reruns"}
+PORT_ONLY_COUNTERS = {"warm_reruns", "collect_wait_us", "collect_copy_us",
+                      "collect_filter_us", "d2h_bytes", "pass_device_us",
+                      "host_plan_us"}
 # counters that depend on what ran before in the process (first sightings)
 # or on the wall clock
 UNCOMPARED_COUNTERS = {"batch_traces", "count_traces", "expr_traces",
-                       "sharded_traces", "mesh2d_traces", "collect_us"}
+                       "sharded_traces", "mesh2d_traces", "collect_us",
+                       "collect_wait_us", "collect_copy_us",
+                       "collect_filter_us", "pass_device_us", "host_plan_us"}
+# spans only the port records, as (name, parent name): the collect's parts
+# and a host-routed query of ``SearchEngine.query_batch``
+PORT_ONLY_SPANS = {("wait", "collect"), ("copy", "collect"),
+                   ("filter", "collect"), ("host_plan", None)}
+# attributes only the port records, by span name
+PORT_ONLY_ATTRS = {"device": {"device_us", "passes"}}
+COLLECT_PARTS = ("wait", "copy", "filter")
 
 
 @pytest.fixture(autouse=True)
@@ -72,6 +87,60 @@ PORT = SimpleNamespace(obs=obs_mod, search=search, counters=EXEC_COUNTERS,
                        cost=CostModel, kw={"device": CPU})
 JAX = SimpleNamespace(obs=jax_obs, search=jax_search, counters=JAX_COUNTERS,
                       cost=JaxCostModel, kw={"use_device": True})
+
+
+def shared_forest(forest):
+    """A span forest (``_torch_mesh_cases.span_forest``) without the port's
+    own spans and attributes: what the JAX package records too."""
+    return [(name, parent,
+             [kv for kv in attrs if kv[0] not in PORT_ONLY_ATTRS.get(name, ())],
+             is_open)
+            for name, parent, attrs, is_open in forest
+            if (name, parent) not in PORT_ONLY_SPANS]
+
+
+def check_port_only_forest(forest):
+    """The port's own spans and attributes in a forest: every ``device``
+    span has the device-clock ``device_us`` (0 on the CPU) and its
+    ``passes``, at least as many ``wait``, ``copy`` and ``filter`` spans as
+    ``collect`` spans sit under a ``collect``, and a ``host_plan`` root
+    names its algorithm.  Returns the number of ``collect`` spans."""
+    collects = sum(name == "collect" for name, *_ in forest)
+    for name, parent, attrs, is_open in forest:
+        attrs = dict(attrs)
+        assert not is_open, name
+        if name == "device":
+            assert attrs["device_us"] == 0.0 and attrs["passes"] >= 1, attrs
+        if name == "host_plan":
+            assert parent is None and attrs["algorithm"], attrs
+    for part in COLLECT_PARTS:
+        assert sum((name, parent) == (part, "collect")
+                   for name, parent, *_ in forest) >= collects, part
+    return collects
+
+
+def check_collect_parts(tracer):
+    """Every ``collect`` span has ``wait``, ``copy`` and ``filter``
+    children, in order and inside its bounds, and nothing else."""
+    spans = tracer.finished()
+    collects = [s for s in spans if s.name == "collect"]
+    assert collects
+    for c in collects:
+        kids = sorted((s for s in spans if s.parent_id == c.span_id),
+                      key=lambda s: s.start_us)
+        assert {s.name for s in kids} == set(COLLECT_PARTS), kids
+        for a, b in zip(kids, kids[1:]):
+            assert a.end_us <= b.start_us
+        assert c.start_us <= kids[0].start_us
+        assert kids[-1].end_us <= c.end_us
+
+
+def check_collect_counters(snap):
+    """The collect's parts add up to no more than ``collect_us``; bytes
+    came to the host; no device clock ran on the CPU."""
+    parts = sum(snap[f"collect_{p}_us"] for p in COLLECT_PARTS)
+    assert parts <= snap["collect_us"]
+    assert snap["d2h_bytes"] > 0 and snap["pass_device_us"] == 0
 
 
 class FakeClock:
@@ -380,7 +449,10 @@ def test_async_engine_spans_match_jax(postings, monkeypatch):
     algos = {a for a, *_ in port.answers}
     assert {"rangroupscan/device", "expr/device", "expr/subcache",
             "hashbin", "rangroupscan", "expr/host", False} <= algos, algos
-    assert port.forest == jax.forest
+    assert shared_forest(port.forest) == jax.forest
+    assert check_port_only_forest(port.forest) > 0
+    check_collect_parts(port.obs.tracer)
+    check_collect_counters(port.counters)
     roots = port.obs.tracer.finished("request")
     routes = {s.attrs.get("route") for s in roots}
     assert routes == {"device", "cache", "subcache", "host", None}, routes
@@ -577,7 +649,9 @@ def test_suggest_batch_spans_match_jax(monkeypatch):
     port = _suggest_script(PORT, corpus, monkeypatch)
     jax = _suggest_script(JAX, corpus, monkeypatch)
     assert port.answers == jax.answers
-    assert port.forest == jax.forest
+    assert shared_forest(port.forest) == jax.forest
+    assert check_port_only_forest(port.forest) > 0
+    check_collect_parts(port.obs.tracer)
     assert port.hist == jax.hist
     roots = port.obs.tracer.finished("request")
     assert all(s.attrs["kind"] == "suggest" for s in roots)
@@ -597,7 +671,8 @@ def test_traced_2x2_topology_matches_jax(tmp_path):
     jax, port = cases.both(jax_results, "obs_mesh2d_traced")
     assert port["done"] and jax["done"]
     assert port["served"] == jax["served"]
-    assert port["forest"] == jax["forest"]
+    assert shared_forest(port["forest"]) == jax["forest"]
+    assert check_port_only_forest(port["forest"]) > 0
     assert port["open"] == jax["open"] == 0
     assert port["hist"] == jax["hist"]
     assert port["counters"] == jax["counters"]
