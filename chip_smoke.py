@@ -361,6 +361,17 @@ imports nothing of JAX or of the JAX package.  Phases, in order:
                    --shape train_4k`` as a subprocess (started after phase
                    1, so its CPU-bound trace overlaps the phases between;
                    waited here): status ``ok``, its seconds.
+ 21. compact_rows — run after phase 3: the single-device pass's answer
+               compaction against its plain version on the card, bit for
+               bit (offsets and every value up to the last offset), at
+               the benchmark cells' pass shapes (``COMPACT_SHAPES``) and
+               on edge cases (every value -1, none, one row, overflow
+               rows left out, no row taken, a single row past a tile,
+               odd widths and a misaligned buffer for the scalar loads);
+               at each cell's shape the kernel's time (CUDA events)
+               beside its bytes at the memory rate, the plain version's
+               time, and the host clock of the pageable copy of the
+               whole buffer against that of the answers alone.
 
 Each phase prints its seconds.  It fails (non-zero exit, no final line) if
 there is no GPU, a kernel does not build, launch or agree, a kernel is not
@@ -651,6 +662,15 @@ SEQ_SHARD_MESH = (1, 4)              # 20a: qwen3-1.7b, (4, 128, 2048) blocks
 SEQ_SHARD_MOE_MESH = (2, 2)          # 20b: deepseek at MESH_MOE_LAYERS layers
 SEQ_SHARD_TRAIN_MESH = (2, 2)        # 20c: qwen3 at MESH_TRAIN_MICRO
 SEQ_SHARD_WARMUP, SEQ_SHARD_TIMED = 2, 5     # 20a: prefills in turns
+
+# -- compact_rows (phase 21) -------------------------------------------------
+# (B, capacity, g_0) of a first pass in each benchmark cell, and the share
+# of its values that are answers: paper10m-batch's 32 queries over 10M
+# sets at G = 2^20 (capacity G / 4, r = 100k-150k of 8.4M slots a row), and
+# a 128-query bucket of skewed-batch at an assumed t_k of 16 (the cell's
+# copies moved about 230 times the answer's bytes)
+COMPACT_SHAPES = {"paper10m-batch": ((32, 1 << 18, 32), 0.014),
+                  "skewed-batch": ((128, 1 << 14, 32), 0.0045)}
 
 # -- the card: published H100 SXM peaks (NVIDIA data sheet, whitepaper) ----
 HBM_BYTES_PER_S = 3.35e12
@@ -1010,13 +1030,13 @@ def pass_bytes(engine, log, results) -> dict:
     """Device bytes the batch's passes make and copy, summed over first
     passes and overflow re-runs: the (B, k, G, m, W) images
     ``_aligned_images`` writes, the (B, capacity, g_i) survivor rows the
-    gathers stack, and the packed (B, capacity, g_0) buffer copied to the
-    host."""
+    gathers stack, and the packed (B, capacity, g_0) buffer that
+    ``compact_rows`` reads."""
     caps = {}
     for plan, res in zip(map(engine.plan, log), results):
         if plan.algorithm == "device":
             caps.setdefault(plan.sig, []).append(res.stats["capacity"])
-    out = {"aligned_images": 0, "gathered_rows": 0, "packed_to_host": 0}
+    out = {"aligned_images": 0, "gathered_rows": 0, "packed_rows": 0}
     for sig, got in caps.items():
         G = 1 << sig.ts[-1]
         passes = [(len(got), sig.capacity_tier)]
@@ -1026,7 +1046,7 @@ def pass_bytes(engine, log, results) -> dict:
         for B, cap in passes:
             out["aligned_images"] += B * sig.k * G * M_IMAGES * (W_BITS // 32) * 4
             out["gathered_rows"] += B * cap * sum(sig.gmaxes) * 4
-            out["packed_to_host"] += B * cap * sig.gmaxes[0] * 4
+            out["packed_rows"] += B * cap * sig.gmaxes[0] * 4
     return out
 
 
@@ -2143,9 +2163,9 @@ class HostCopyMeter:
 
         self._engine, self._to_host = engine, engine._to_host
 
-        def to_host(tensors, ready, times):
+        def to_host(tensors, ready, times, **kw):
             caller = sys._getframe(1).f_code.co_qualname
-            arrays = self._to_host(tensors, ready, times)
+            arrays = self._to_host(tensors, ready, times, **kw)
             self.bytes[caller] = self.bytes.get(caller, 0) + sum(
                 a.nbytes for a in arrays)
             return arrays
@@ -2272,7 +2292,7 @@ def run_boolean_expressions(torch, engine, postings, report,
     out["10a"] = {
         "wall_s": wall, "qps": len(log) / wall, "counters": counters,
         "expr_buckets": n_expr_buckets, "buckets": len(sigs),
-        "expr_bytes_to_host": copied, "flat_packed_to_host": flat_bytes,
+        "expr_bytes_to_host": copied, "flat_bytes_to_host": flat_bytes,
         "algorithms": {a: algos.count(a) for a in sorted(set(algos))},
         "launches": paths["expression log"],
     }
@@ -5674,6 +5694,7 @@ def run_dryrun_bucket(torch, engine, log, postings, report) -> dict:
         EXEC_COUNTERS, bucket_op_log, dispatch_device_batch,
     )
     from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.compact import compact_rows_cuda
     from repro_torch.kernels.group_intersect import group_match_cuda
     from repro_torch.launch.op_analysis import analyze_ops
 
@@ -5696,16 +5717,20 @@ def run_dryrun_bucket(torch, engine, log, postings, report) -> dict:
     first_pass_ms()
     pass_ms = float(np.median([first_pass_ms() for _ in range(5)]))
     bitmap_filter_cuda.launches = group_match_cuda.launches = 0
+    compact_rows_cuda.launches = 0
     reruns = EXEC_COUNTERS["rerun_calls"]
     oplog = bucket_op_log(rows, device=dev)
     launches = {"bitmap_filter": bitmap_filter_cuda.launches,
-                "group_match": group_match_cuda.launches}
+                "group_match": group_match_cuda.launches,
+                "compact_rows": compact_rows_cuda.launches}
     reruns = EXEC_COUNTERS["rerun_calls"] - reruns
     entries = oplog.counts("kernel")
-    require(entries == {"bitmap_filter": 1, "group_match": sig.k - 1},
+    require(entries == {"bitmap_filter": 1, "group_match": sig.k - 1,
+                        "compact_rows": 1},
             f"19c: kernel entries {entries} for k {sig.k}")
     require(launches == {"bitmap_filter": 1 + reruns,
-                         "group_match": (sig.k - 1) * (1 + reruns)},
+                         "group_match": (sig.k - 1) * (1 + reruns),
+                         "compact_rows": 1 + reruns},
             f"19c: launches {launches} against the log's {entries} and "
             f"{reruns} re-run pass(es)")
     for (vals, _), p in zip(oplog.results, plans):
@@ -6209,6 +6234,106 @@ def run_seq_shard(torch, report) -> dict:
     return launches
 
 
+def compact_input(torch, gen, shape, kept: float, drop_every: int = 0):
+    """Rows of ``shape``, a share ``kept`` of them answers (any int32 bit
+    pattern but -1), the rest -1; ``take`` False for every
+    ``drop_every``-th row (an overflow row)."""
+    vals = torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=gen,
+                         device="cuda", dtype=torch.int32)
+    vals[vals == -1] = 0
+    keep = torch.rand(shape, generator=gen, device="cuda") < kept
+    rows = torch.where(keep, vals, -1)
+    take = torch.ones(shape[0], dtype=torch.bool, device="cuda")
+    if drop_every:
+        take[::drop_every] = False
+    return rows, take
+
+
+def check_compact(torch, ops, ref, compact_rows_cuda, rows, take,
+                  what: str) -> int:
+    """``compact_rows`` against its plain version: offsets equal and the
+    values equal up to the last offset, by the kernel and the router.
+    Returns the answers."""
+    want_v, want_o = ref.compact_rows_ref(rows, take)
+    for route, (values, offsets) in (("kernel", compact_rows_cuda(rows, take)),
+                                     ("router", ops.compact_rows(rows, take))):
+        torch.cuda.synchronize()
+        require(torch.equal(offsets, want_o),
+                f"21 {what}: {route} offsets differ from the plain version")
+        require(values.numel() >= want_v.numel() and torch.equal(
+                    values[:want_v.numel()], want_v),
+                f"21 {what}: {route} values differ from the plain version")
+    return want_v.numel()
+
+
+def host_copy_s(torch, t) -> float:
+    """Host seconds of one pageable copy of ``t`` to the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.cpu()
+    return time.perf_counter() - t0
+
+
+def run_compact_rows(torch, report) -> dict:
+    """Phase 21: ``compact_rows`` bit for bit against its plain version on
+    the card, at ``COMPACT_SHAPES`` and on edge cases, then timed at each
+    cell's shape.  Returns the paper10m-batch shape's times (the kernel
+    table's row)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.compact import compact_rows_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    out = report["compact_rows"] = {"card": nvidia_smi(), "edges": [],
+                                    "cells": {}}
+    edges = [("all -1", (4, 1000, 8), 0.0, 0), ("no -1", (4, 1000, 8), 1.0, 0),
+             ("one row", (1, 4096, 32), 0.3, 0),
+             ("overflow rows", (9, 2048, 16), 0.1, 3),
+             ("no row taken", (4, 512, 8), 0.5, 1),
+             ("a row past a tile", (1, 3 * 8192 + 4), 0.2, 0),
+             ("odd width", (5, 333, 3), 0.4, 2), ("width 1", (7, 1), 0.5, 0)]
+    for what, shape, kept, drop in edges:
+        rows, take = compact_input(torch, gen, shape, kept, drop)
+        n = check_compact(torch, ops, ref, compact_rows_cuda, rows, take, what)
+        out["edges"].append({"case": what, "shape": list(shape), "answers": n})
+    # 4 bytes off 16: the scalar loads
+    rows, take = compact_input(torch, gen, (3 * 4096 + 1,), 0.3)
+    rows = rows[1:].view(3, 4096)
+    check_compact(torch, ops, ref, compact_rows_cuda, rows,
+                  torch.ones(3, dtype=torch.bool, device="cuda"), "misaligned")
+    out["edges"].append({"case": "misaligned", "shape": [3, 4096]})
+    for cell, (shape, kept) in COMPACT_SHAPES.items():
+        rows, take = compact_input(torch, gen, shape, kept)
+        n = check_compact(torch, ops, ref, compact_rows_cuda, rows, take, cell)
+        B, L = shape[0], math.prod(shape[1:])
+        ms = cuda_ms(torch, lambda: compact_rows_cuda(rows, take))
+        plain_ms = cuda_ms(torch, lambda: ref.compact_rows_ref(rows, take),
+                           iters=3)
+        # each value read once, each answer written once, the offsets
+        moved = B * L * 4 + n * 4 + (B + 1) * 8
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        values, offsets = compact_rows_cuda(rows, take)
+        whole_s = host_copy_s(torch, rows)
+        answers_s = host_copy_s(torch, values[:n])
+        out["cells"][cell] = row = {
+            "shape": list(shape), "answers": n, "bytes": moved, "ms": ms,
+            "bound_ms": bound_ms, "share": bound_ms / ms,
+            "plain_ms": plain_ms, "max_abs_err": 0,
+            "copy_whole_s": whole_s, "copy_answers_s": answers_s}
+        print(f"phase 21 compact_rows at {cell}'s {tuple(shape)} ({n} "
+              f"answers): {ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
+              f"{moved} at {HBM_BYTES_PER_S:.3g} B/s), share "
+              f"{row['share']:.1%}; plain {plain_ms:.4f} ms; pageable copy "
+              f"of the whole buffer {whole_s * 1e3:.2f} ms against the "
+              f"answers' {answers_s * 1e3:.3f} ms (host clock)")
+        del rows, take, values, offsets
+        torch.cuda.empty_cache()
+    print(f"phase 21 on {out['card']}: {len(out['edges'])} edge cases and "
+          f"{len(COMPACT_SHAPES)} cell shapes bit-identical to the plain "
+          f"version")
+    return out["cells"]["paper10m-batch"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=pathlib.Path,
@@ -6223,6 +6348,7 @@ def main(argv=None) -> int:
     from repro_torch.core.engine import EXEC_COUNTERS
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+    from repro_torch.kernels.compact import compact_rows_cuda
     from repro_torch.kernels.count import count_block_cuda, make_count_table
     from repro_torch.kernels.group_intersect import group_match_cuda
     from repro_torch.serve.search import SearchEngine, zipf_query_log
@@ -6265,6 +6391,8 @@ def main(argv=None) -> int:
     gm_err, gm_cases = check_group_match(torch, gen, ops, ref, group_match_cuda)
     torch.cuda.empty_cache()
     t_phase = phase_done("3 group_match", t_phase)
+    cr = run_compact_rows(torch, report)
+    t_phase = phase_done("21 compact_rows", t_phase)
 
     # phase 4: the slice at paper scale
     t0 = time.perf_counter()
@@ -6286,15 +6414,21 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     bitmap_filter_cuda.launches = 0
     group_match_cuda.launches = 0
+    compact_rows_cuda.launches = 0
     EXEC_COUNTERS.reset()
     results, wall = serve_slice(engine, log, postings, torch.cuda.synchronize)
     launches = {"bitmap_filter": bitmap_filter_cuda.launches,
-                "group_match": group_match_cuda.launches}
+                "group_match": group_match_cuda.launches,
+                "compact_rows": compact_rows_cuda.launches}
     counters = EXEC_COUNTERS.snapshot()
     peak = torch.cuda.max_memory_allocated()
     algos = [r.algorithm for r in results]
     require(launches["bitmap_filter"] > 0, "bitmap_filter never launched")
     require(launches["group_match"] > 0, "group_match never launched")
+    require(launches["compact_rows"] == counters["compact_calls"]
+            == counters["batch_calls"],
+            f"compact_rows launched {launches['compact_rows']} times for "
+            f"{counters['batch_calls']} passes")
     require(counters["rerun_calls"] >= 1, "no overflow re-run")
     require("hashbin" in algos, "no query took hashbin")
     require(results[-1].algorithm == "hashbin", "2^16 x 2^23 pair not hashbin")
@@ -6309,8 +6443,8 @@ def main(argv=None) -> int:
           f"oracle")
     moved = pass_bytes(engine, log, results)
     print(f"phase 4 bytes: aligned images {moved['aligned_images']}, gathered "
-          f"rows {moved['gathered_rows']}, packed to host "
-          f"{moved['packed_to_host']}")
+          f"rows {moved['gathered_rows']}, packed rows compacted "
+          f"{moved['packed_rows']}, copied to the host {counters['d2h_bytes']}")
     _, warm_wall = serve_slice(engine, log, postings, torch.cuda.synchronize)
     print(f"phase 4 slice, second pass: wall {warm_wall:.3f} s, "
           f"{len(log) / warm_wall:.1f} queries/s")
@@ -6422,6 +6556,7 @@ def main(argv=None) -> int:
     paths = {
         "bitmap_filter": {"query_batch": launches["bitmap_filter"]},
         "group_match": {"query_batch": launches["group_match"]},
+        "compact_rows": {"query_batch": launches["compact_rows"]},
         "pair_count": {"suggest_batch": launches["pair_count"],
                        "SuggestEngine.warm": pc_warm_launches,
                        "suggest_batch small sets": small_launches},
@@ -6455,6 +6590,13 @@ def main(argv=None) -> int:
          "ms": gm["ms"], "plain_ms": gm["plain_ms"], "bound_ms": gm["bound_ms"],
          "bound_by": gm["bound_by"], "library_ms": None,
          "launches_by_path": paths["group_match"]},
+        {"name": "compact_rows", "route": "cuda",
+         "source": "src/repro_torch/csrc/compact_rows.cu", "replaces": None,
+         "launches": launches["compact_rows"],
+         "max_abs_err": cr["max_abs_err"], "ms": cr["ms"],
+         "plain_ms": cr["plain_ms"], "bound_ms": cr["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "launches_by_path": paths["compact_rows"]},
         {"name": "pair_count", "route": "cuda",
          "source": "src/repro_torch/csrc/pair_count.cu",
          "replaces": "src/repro/kernels/count.py:70",

@@ -13,8 +13,10 @@ queries runs as one pass of two phases:
                      (``kernels.ops.group_match``, k-1 launches per pass)
 
 and returns one packed result buffer per bucket plus per-query overflow
-flags; queries whose survivors exceed ``capacity`` are re-run once at
-capacity G.  Results, stats and the ``batch_calls`` / ``rerun_calls``
+flags (the single-device pass then compacts the buffer's answers into one
+flat buffer with row offsets, ``kernels.ops.compact_rows``, a hand-written
+CUDA kernel on the card); queries whose survivors exceed ``capacity`` are
+re-run once at capacity G.  Results, stats and the ``batch_calls`` / ``rerun_calls``
 counters equal the JAX package's ``repro.core.engine`` on the same index.
 
 Dispatch is split from collection: :func:`dispatch_device_batch` enqueues
@@ -179,7 +181,11 @@ class ExecCounters(dict):
       issue and Python;
     - ``d2h_bytes``  bytes of the tensors :func:`_to_host` brings to the
       host, first passes and re-runs alike (on the CPU, where the arrays
-      are views, counted all the same);
+      are views, counted all the same): for the single-device pass its
+      compacted answers, 4 bytes an id, and its row offsets and stats;
+      for the others their whole survivor buffers;
+    - ``compact_calls``  answer compactions (``kernels.ops.compact_rows``),
+      one per single-device pass, first passes and re-runs;
     - ``pass_device_us``  the device-clock length of each pass: from a
       timing event recorded before its first enqueued op to its ``ready``
       event, summed over the devices it ran on (0 on the CPU).  It includes
@@ -236,7 +242,7 @@ class ExecCounters(dict):
         "inflight_dispatches", "inflight_collects",
         "collect_us", "collect_wait_us", "collect_copy_us",
         "collect_filter_us", "d2h_bytes", "pass_device_us",
-        "overlap_high_water",
+        "compact_calls", "overlap_high_water",
         "warm_executions", "warm_reruns",
         "result_cache_hits", "result_cache_misses",
         "tier_flushes", "deadline_flushes",
@@ -421,8 +427,19 @@ class CollectTimes:
                 "pass_device_us": int(self.device_us)}
 
 
+def _copy(tensors: Sequence[torch.Tensor],
+          ready: Optional[_Ready]) -> List[np.ndarray]:
+    """Host arrays of ``tensors`` once ``ready`` is met (views on the CPU)."""
+    if ready is None:
+        return [t.numpy() for t in tensors]
+    stream = _copy_stream(tensors[0].device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready.end)  # already met: orders the copy after it
+        return [t.cpu().numpy() for t in tensors]
+
+
 def _to_host(tensors: Sequence[torch.Tensor], ready: Optional[_Ready],
-             times: CollectTimes) -> List[np.ndarray]:
+             times: CollectTimes, compacted: bool = False) -> List[np.ndarray]:
     """Copy one pass's outputs to the host, waiting for that pass only,
     and note the wait, the copy, the bytes and the pass's device time in
     ``times``.
@@ -433,18 +450,21 @@ def _to_host(tensors: Sequence[torch.Tensor], ready: Optional[_Ready],
     copy there can queue behind another thread's copy, never behind a
     pass.  The copies are blocking, so the source tensors stay referenced
     until they are done.
+
+    ``compacted``: ``tensors`` are a compacted pass's (values, offsets,
+    ...) (``kernels.ops.compact_rows``); the tensors after the values are
+    copied first, then the values up to the last offset, in the same part.
     """
     with times.part("wait"):
         if ready is not None:
             ready.synchronize()
     with times.part("copy"):
-        if ready is None:
-            host = [t.numpy() for t in tensors]
+        if compacted:
+            values, *small = tensors
+            small_h = _copy(small, ready)
+            host = _copy([values[:int(small_h[0][-1])]], ready) + small_h
         else:
-            stream = _copy_stream(tensors[0].device)
-            with torch.cuda.stream(stream):
-                stream.wait_event(ready.end)  # already met: orders the copy after it
-                host = [t.cpu().numpy() for t in tensors]
+            host = _copy(tensors, ready)
     times.d2h_bytes += sum(a.nbytes for a in host)
     if ready is not None:
         times.device_us += ready.device_us()
@@ -786,7 +806,8 @@ def _intersect_k_batch(
                 base, _gather_survivor_rows(v, surv_c, tk - t))     # (B, cap, g0)
         r = keep.sum(dim=(1, 2))
         overflow = n_surv > capacity
-        # pack values and mask into one buffer (-1 = dropped): one copy to host
+        # pack values and mask into one buffer (-1 = dropped): compacted on
+        # the device by the single-device pass, copied whole by the others
         packed = torch.where(keep, base, -1)
     return packed, r, n_surv, overflow
 
@@ -848,7 +869,11 @@ def dispatch_device_batch(
     exec layer's bucketing guarantees it).  ``batch_calls`` is bumped per
     pass (the first here, a re-run inside collect), ``rerun_calls`` per
     overflow pass, ``batch_traces`` per first sighting of a pass's
-    (signature, capacity, pow2 B-tier).
+    (signature, capacity, pow2 B-tier), ``compact_calls`` per pass.
+
+    Each pass ends with ``kernels.ops.compact_rows``: its answers, overflow
+    rows left out, in one flat buffer with row offsets, so the collect
+    copies the offsets and stats, then the answers alone.
 
     The batch runs at its own size B.  (The JAX package pads B to a power of
     two to bound XLA's compile cache; eager PyTorch compiles nothing per
@@ -876,8 +901,11 @@ def dispatch_device_batch(
         _note_specialization("batch_traces", _batch_spec(
             dev, ts, gmaxes, m, w, cap, len(active)))
         start = _record_start(dev)
-        handles = _intersect_k_batch(vals, images, ts, cap)
-        return handles, _record_ready(dev, start)
+        packed, r, n_surv, overflow = _intersect_k_batch(vals, images, ts, cap)
+        values, offsets = ops.compact_rows(packed, ~overflow)
+        del packed  # queued: the compaction keeps its block on this stream
+        EXEC_COUNTERS.bump("compact_calls")
+        return (values, offsets, r, n_surv, overflow), _record_ready(dev, start)
 
     first_active = list(range(len(ordered)))
     first_cap = capacity or default_capacity(ts)
@@ -889,15 +917,15 @@ def dispatch_device_batch(
         handles, ready = first_handles, first_ready
         while True:
             times.passes += 1
-            packed_h, r_h, n_surv_h, over_h = _to_host(handles, ready, times)
+            values_h, off_h, r_h, n_surv_h, over_h = _to_host(
+                handles, ready, times, compacted=True)
             rerun = []
             with times.part("filter"):
                 for row, qi in enumerate(active):
                     if over_h[row]:
                         rerun.append(qi)
                         continue
-                    row_vals = packed_h[row].ravel()
-                    out = row_vals[row_vals != -1]
+                    out = values_h[off_h[row]:off_h[row + 1]]
                     results[qi] = (
                         np.sort(out.view(np.uint32)),
                         {
@@ -2100,8 +2128,9 @@ def bucket_op_log(
     Checks that the bucket has one signature, then runs its first pass
     under the recorder exactly as :func:`dispatch_device_batch` runs it
     (the port's own B with no pow2 padding, the default capacity unless
-    ``capacity`` is given): one ``bitmap_filter`` and k - 1 ``group_match``
-    kernel entries, beside the aten ops around them.  Eager PyTorch has no
+    ``capacity`` is given): one ``bitmap_filter``, k - 1 ``group_match``
+    and one ``compact_rows`` kernel entries, beside the aten ops around
+    them.  Eager PyTorch has no
     lower-only step, so the pass executes and bumps the counters as a
     dispatch does; it is then collected outside the recorder (with any
     overflow re-run, as a dispatch's collect), and the log's ``results``

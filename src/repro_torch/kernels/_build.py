@@ -117,6 +117,10 @@ def library() -> ctypes.CDLL:
             lib.repro_pair_count.argtypes = [vp, vp, i64, i32, i32, i32, i32,
                                              i32, vp]
             lib.repro_pair_count.restype = i32
+            lib.repro_compact_rows_scratch.argtypes = [i64, i64]
+            lib.repro_compact_rows_scratch.restype = i64
+            lib.repro_compact_rows.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
+            lib.repro_compact_rows.restype = i32
             lib.repro_cuda_error_string.argtypes = [i32]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -19,11 +19,12 @@ import torch
 from ..launch import op_analysis
 from . import ref
 from .bitmap_filter import bitmap_filter_cuda
+from .compact import compact_rows_cuda
 from .count import CountTable, count_block_cuda
 from .group_intersect import group_match_cuda
 
-__all__ = ["bitmap_filter", "count_block", "group_match", "pack_vocab_mask",
-           "unpack_vocab_mask", "vocab_mask_and"]
+__all__ = ["bitmap_filter", "compact_rows", "count_block", "group_match",
+           "pack_vocab_mask", "unpack_vocab_mask", "vocab_mask_and"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -53,6 +54,20 @@ def group_match(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
         else:
             outs.append(ref.group_match_ref(a_vals, b_vals))
     return outs[0]
+
+
+def compact_rows(packed: torch.Tensor, take: torch.Tensor):
+    """(B, ...) int32 rows (-1 = dropped) and a (B,) bool take flag ->
+    (values, offsets): row b's kept values in position order at
+    ``values[offsets[b]:offsets[b + 1]]``, empty where ``take[b]`` is False;
+    ``offsets`` (B + 1,) int64.  On the card ``values`` is allocated at its
+    worst case and holds nothing past ``offsets[B]``."""
+    with op_analysis.kernel("compact_rows", packed, take) as outs:
+        if _route(packed) == "cuda":
+            outs.extend(compact_rows_cuda(packed, take))
+        else:
+            outs.extend(ref.compact_rows_ref(packed, take))
+    return outs[0], outs[1]
 
 
 def count_block(table: CountTable) -> torch.Tensor:

@@ -54,6 +54,28 @@ def group_match_ref(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
     return eq.any(dim=-1) & (a_vals != SENTINEL32)
 
 
+def compact_rows_ref(packed: torch.Tensor, take: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A pass's answers compacted: every value other than -1 of every taken
+    row, in row-major position order.
+
+    Args:
+      packed: (B, ...) int32 — each row's values, -1 where dropped.
+      take: (B,) bool — False for a row whose answer is not wanted (an
+        overflow row that is re-run).
+
+    Returns:
+      (values, offsets): ``values`` (offsets[B],) int32, row b's slice
+      ``values[offsets[b]:offsets[b + 1]]`` is ``row[row != -1]`` (empty
+      where ``take[b]`` is False); ``offsets`` (B + 1,) int64, the exclusive
+      scan of the rows' kept counts.
+    """
+    rows = packed.reshape(packed.shape[0], -1)
+    keep = (rows != SENTINEL32) & take[:, None]
+    offsets = torch.nn.functional.pad(keep.sum(dim=1).cumsum(dim=0), (1, 0))
+    return rows[keep], offsets
+
+
 def pair_count_ref(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
     """Per-row count of real ``a`` elements present in ``b``.
 

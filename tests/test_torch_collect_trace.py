@@ -4,7 +4,9 @@ time, the ``wait`` / ``copy`` / ``filter`` and ``host_plan`` spans, the
 ``device`` span's ``device_us`` and ``passes``, and the profiler ranges,
 opened only while a profiler records."""
 import dataclasses
+import functools
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -55,8 +57,10 @@ def largest_bucket(eng, log):
 
 @pytest.mark.parametrize("rerun", [False, True], ids=["first_pass", "rerun"])
 def test_d2h_bytes_are_the_pass_outputs(postings, monkeypatch, rerun):
-    """``d2h_bytes`` is the ``nbytes`` of every pass's outputs, the first
-    and an overflow re-run alike, and ``passes`` counts both."""
+    """``d2h_bytes`` is what every pass's compaction leaves to copy, the
+    first and an overflow re-run alike: 4 bytes an id of the rows taken
+    (overflow rows are re-run, not copied), then the row offsets and the
+    stats tensors; ``passes`` counts both passes."""
     eng = SearchEngine(postings, seed=3, device=CPU)
     sig, items = largest_bucket(eng, zipf_query_log(sorted(eng.index), 32,
                                                     seed=5))
@@ -67,8 +71,10 @@ def test_d2h_bytes_are_the_pass_outputs(postings, monkeypatch, rerun):
     real = engine._intersect_k_batch
 
     def recorded(*args):
-        out = real(*args)
-        outputs.append(sum(t.numel() * t.element_size() for t in out))
+        out = packed, r, n_surv, overflow = real(*args)
+        small = (len(r) + 1) * 8 + sum(t.numel() * t.element_size()
+                                       for t in (r, n_surv, overflow))
+        outputs.append(4 * int(r[~overflow].sum()) + small)
         return out
 
     monkeypatch.setattr(engine, "_intersect_k_batch", recorded)
@@ -85,6 +91,60 @@ def test_d2h_bytes_are_the_pass_outputs(postings, monkeypatch, rerun):
     kids = [s.name for s in obs.tracer.finished()
             if s.parent_id == obs.tracer.finished("collect")[0].span_id]
     assert kids == ["wait", "copy", "filter"] * (1 + int(rerun))
+
+
+def packed_collect(queries, capacity):
+    """The collect as it was before compaction: every pass's whole packed
+    buffer, its -1 padding dropped on the host, overflow rows re-run once
+    at capacity G."""
+    ordered = [sorted(q, key=engine.set_sort_key) for q in queries]
+    ts = tuple(s.t for s in ordered[0])
+    G = 1 << ts[-1]
+    results = [None] * len(ordered)
+    active, cap = list(range(len(ordered))), capacity
+    while active:
+        packed, r, n_surv, over = engine._intersect_k_batch(
+            [[ordered[i][j].vals for i in active] for j in range(len(ts))],
+            [[ordered[i][j].images for i in active] for j in range(len(ts))],
+            ts, cap)
+        rerun = []
+        for row, qi in enumerate(active):
+            if over[row]:
+                rerun.append(qi)
+                continue
+            vals = packed[row].numpy().ravel()
+            results[qi] = (np.sort(vals[vals != -1].view(np.uint32)), {
+                "group_tuples": G, "tuples_survived": int(n_surv[row]),
+                "capacity": cap, "r": int(r[row]),
+                "batch_size": len(active)})
+        active, cap = rerun, G
+    return results
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflow"])
+def test_compacted_collect_gives_the_packed_answers(postings, overflow):
+    """``intersect_device_batch`` gives, value for value and stat for stat,
+    what the collect of the whole packed buffer gave, a bucket that
+    overflows and re-runs at G included, and the exact intersections."""
+    eng = SearchEngine(postings, seed=3, device=CPU)
+    sig, items = largest_bucket(eng, zipf_query_log(sorted(eng.index), 32,
+                                                    seed=5))
+    terms = [p.terms for _, p in items]
+    queries = [[eng.device.sets[t] for t in q] for q in terms]
+    # capacity G holds every survivor; at 1, the queries with two re-run
+    cap = 1 if overflow else 1 << sig.ts[-1]
+    got = engine.intersect_device_batch(queries, capacity=cap, device=CPU)
+    want = packed_collect(queries, cap)
+    assert len(got) == len(want) == len(items) > 1
+    for (gv, gs), (wv, ws), q in zip(got, want, terms):
+        assert gv.dtype == np.uint32 and np.array_equal(gv, wv)
+        assert gs == ws
+        exact = functools.reduce(np.intersect1d, [postings[t] for t in q])
+        assert np.array_equal(gv, exact)
+    reruns = sum(s["capacity"] != cap for _, s in got)
+    assert (reruns > 0) == overflow
+    assert EXEC_COUNTERS["compact_calls"] == EXEC_COUNTERS["batch_calls"] \
+        == 1 + int(reruns > 0)
 
 
 def test_collect_parts_add_up_to_no_more_than_collect_us(postings):

@@ -372,8 +372,8 @@ def bucket_sets():
 @pytest.mark.parametrize("names", ["ac", "abd"])
 def test_bucket_op_log_runs_the_bucket_as_a_dispatch(bucket_sets, names):
     """Same answers and counter bumps as ``dispatch_device_batch`` and its
-    collect; the log holds one ``bitmap_filter`` and k - 1 ``group_match``
-    entries of the first pass."""
+    collect; the log holds one ``bitmap_filter``, k - 1 ``group_match`` and
+    one ``compact_rows`` entries of the first pass."""
     row = [bucket_sets[n] for n in names]
     bucket = [row, row[::-1], row]
     clear_specializations()
@@ -389,7 +389,8 @@ def test_bucket_op_log_runs_the_bucket_as_a_dispatch(bucket_sets, names):
     assert {k: mid[k] - before.get(k, 0) for k in mid} == \
         {k: after[k] - mid.get(k, 0) for k in after}
     assert log.counts("kernel") == {"bitmap_filter": 1,
-                                    "group_match": len(names) - 1}
+                                    "group_match": len(names) - 1,
+                                    "compact_rows": 1}
     got = analyze_ops(log, default_group=1)
     assert got["hbm_bytes_per_device"] > 0 and got["flops_per_device"] == 0
 

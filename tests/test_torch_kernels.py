@@ -5,7 +5,8 @@ the JAX package's jnp references and against its Pallas kernels run in
 interpret mode, on the same numpy inputs and over the grid of
 ``tests/test_kernels.py``; outputs must be equal (tolerance 0).  The CUDA
 wrappers must refuse CPU tensors, and the router must send CPU tensors to
-the plain versions without touching the kernels.  The CUDA kernels
+the plain versions without touching the kernels.  ``compact_rows``, which
+the JAX package has no counterpart of, is held against a numpy oracle.  The CUDA kernels
 themselves are held against the plain versions on the card by
 ``chip_smoke.py``.
 """
@@ -21,6 +22,7 @@ from repro.kernels.group_intersect import group_match_pallas
 
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.bitmap_filter import bitmap_filter_cuda
+from repro_torch.kernels.compact import compact_rows_cuda
 from repro_torch.kernels.group_intersect import group_match_cuda
 
 
@@ -140,6 +142,46 @@ def test_group_match_sentinel_never_matches():
     assert not check_match(a, b).any()
 
 
+def compact_case(kind: str):
+    """(rows, take) of one compaction case: int32 rows with -1 where a
+    value was dropped, and the rows' take flags."""
+    rng = np.random.default_rng(len(kind))
+    shape = {"single_row_past_a_tile": (1, 3 * 8192 + 5),
+             "one_row": (1, 64, 8)}.get(kind, (6, 50, 8))
+    rows = rng.integers(0, 1 << 31, size=shape, dtype=np.int64).astype(np.int32)
+    rows[rng.random(shape) < 0.7] = -1
+    take = np.ones(shape[0], dtype=bool)
+    if kind == "all_dropped":
+        rows[:] = -1
+    elif kind == "none_dropped":
+        rows = np.abs(rows)
+    elif kind == "overflow_rows":
+        take[[1, 4]] = False
+    elif kind == "no_row_taken":
+        take[:] = False
+    return rows, take
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_dropped", "none_dropped",
+                                  "one_row", "overflow_rows", "no_row_taken",
+                                  "single_row_past_a_tile"])
+def test_compact_rows_against_numpy(kind):
+    """Each taken row's slice is ``row[row != -1]`` in position order, a
+    row not taken gets an empty one, and the offsets are exact."""
+    rows, take = compact_case(kind)
+    want_vals = [r.ravel()[r.ravel() != -1] if t else np.empty(0, np.int32)
+                 for r, t in zip(rows, take)]
+    want_off = np.concatenate([[0], np.cumsum([len(v) for v in want_vals])])
+    for fn in (ref.compact_rows_ref, ops.compact_rows):
+        values, offsets = fn(torch.from_numpy(rows), torch.from_numpy(take))
+        assert values.dtype == torch.int32 and offsets.dtype == torch.int64
+        np.testing.assert_array_equal(offsets.numpy(), want_off)
+        assert values.shape == (want_off[-1],)
+        for b, want in enumerate(want_vals):
+            np.testing.assert_array_equal(
+                values[offsets[b]:offsets[b + 1]].numpy(), want)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     imgs = torch.zeros((2, 16, 2, 8), dtype=torch.int32)
     rows = torch.zeros((4, 8), dtype=torch.int32)
@@ -147,10 +189,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         bitmap_filter_cuda(imgs)
     with pytest.raises(ValueError):
         group_match_cuda(rows, rows)
+    with pytest.raises(ValueError):
+        compact_rows_cuda(rows, torch.ones(4, dtype=torch.bool))
 
 
 def test_router_sends_cpu_tensors_to_plain_versions():
-    before = (bitmap_filter_cuda.launches, group_match_cuda.launches)
+    before = (bitmap_filter_cuda.launches, group_match_cuda.launches,
+              compact_rows_cuda.launches)
     rng = np.random.default_rng(7)
     imgs = rng.integers(0, 1 << 32, size=(2, 200, 2, 8),
                         dtype=np.uint64).astype(np.uint32)
@@ -160,7 +205,13 @@ def test_router_sends_cpu_tensors_to_plain_versions():
     b = torch.from_numpy(rng.integers(0, 99, size=(16, 24)).astype(np.int32))
     np.testing.assert_array_equal(ops.group_match(a, b).numpy(),
                                   ref.group_match_ref(a, b).numpy())
-    assert (bitmap_filter_cuda.launches, group_match_cuda.launches) == before
+    rows = torch.where(a > 50, a, -1)
+    take = torch.arange(16) % 3 > 0
+    for got, want in zip(ops.compact_rows(rows, take),
+                         ref.compact_rows_ref(rows, take)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (bitmap_filter_cuda.launches, group_match_cuda.launches,
+            compact_rows_cuda.launches) == before
     with pytest.raises(ValueError):
         ops.bitmap_filter(as_torch(imgs).to("meta"))
 
@@ -169,7 +220,8 @@ def test_build_sources_and_digest(tmp_path, monkeypatch):
     """The library is keyed by a hash of its sources and flags: a changed
     source gets a new library name, an unchanged one the same."""
     names = [p.name for p in _build.sources()]
-    assert {"bitmap_filter.cu", "group_match.cu", "pair_count.cu"} <= set(names)
+    assert {"bitmap_filter.cu", "compact_rows.cu", "group_match.cu",
+            "pair_count.cu"} <= set(names)
     for src in _build.sources():
         text = src.read_text()
         assert 'extern "C"' in text

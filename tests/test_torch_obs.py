@@ -55,7 +55,7 @@ CPU = "cpu"
 # counters only the port keeps
 PORT_ONLY_COUNTERS = {"warm_reruns", "collect_wait_us", "collect_copy_us",
                       "collect_filter_us", "d2h_bytes", "pass_device_us",
-                      "host_plan_us"}
+                      "host_plan_us", "compact_calls"}
 # counters that depend on what ran before in the process (first sightings)
 # or on the wall clock
 UNCOMPARED_COUNTERS = {"batch_traces", "count_traces", "expr_traces",
